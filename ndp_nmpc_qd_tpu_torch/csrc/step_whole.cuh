@@ -1,0 +1,935 @@
+// Device functions of the fused NDP-NMPC control step, one scenario per
+// thread. Each function is named after its JAX counterpart:
+//   lin_stage_terms / lin_terminal_terms  ops/pallas/linearize.py:122,183
+//   glue_pair, terminal_init_core, riccati_stage_core, dyn_step,
+//   bound_steps                           ops/pallas/riccati_sparse.py:74-437
+//   chol4, chol4_solve                    ops/pallas/riccati.py:101,122
+//   ipm_whole                             ops/pallas/ipm_whole.py:82
+// and follows the same operation order as the plain PyTorch versions in
+// ops/kernels/{linearize,riccati_sparse,ipm_whole}.py, so the two differ only
+// by nvcc's FMA contraction.
+//
+// Arrays in global memory use the kernel layout (stage, element, B) with the
+// batch innermost: a View is pre-offset to its thread's scenario, and element
+// (k, i) sits at p[(k * d + i) * B], so neighbouring threads touch
+// neighbouring addresses.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace ndp {
+
+constexpr int NX = 10;
+constexpr int NU = 4;
+
+// Constants of `solver/ocp_sparse.make_whole_step`, products precomputed on
+// the host in double so they round to float as the plain version's do.
+// Mirrored field for field by `_StepConsts` in ops/kernels/step_whole.py.
+struct StepConsts {
+  float h;            // shooting interval
+  float rk_half;      // 0.5 * h / substeps
+  float rk_step;      // h / substeps
+  float rk_sixth;     // h / substeps / 6
+  float inv_mass;
+  float gravity;
+  float stage_scale;
+  float q_diag[NX];
+  float gx_scale[6];  // stage_scale * q_diag[:6]
+  float gu_scale[NU]; // stage_scale * r_diag
+  float u_lo[NU], u_hi[NU], v_lo[3], v_hi[3];
+  float big;
+  float diag6_stage[6], diag6_term[6], rdiag_stage[NU];
+  float tau, sigma, mu0, s_min, mu_min;
+  int substeps;
+  int num_iters;
+  int n_stages;
+  int with_dist;
+};
+
+// Tensors of one launch. State tensors update in place.
+struct StepPtrs {
+  float* xb;         // (N+1, 10, B) iterates
+  float* ub;         // (N, 4, B)
+  const float* xr;   // (N+1, 10, B) reference
+  const float* ur;   // (N, 4, B)
+  const float* fd;   // (N+1, 3, B) downwash forecast, null without it
+  const float* x0;   // (1, 10, B) measured state
+  float* lu_lo;      // (N, 4, B) carried duals
+  float* lu_up;
+  float* lx_lo;      // (N+1, 3, B)
+  float* lx_up;
+  float* mu;         // (B,) barrier weight, < 0 = cold
+  float* eq;         // (B,) out: equality residual
+  float* ws;         // ws_f32_planes(N) planes of B floats
+  void* wj;          // ws_jac_planes(N) planes of B jac-dtype values
+};
+
+template <typename T>
+struct View {
+  T* p;
+  int d;
+  long long B;
+  __device__ __forceinline__ T& operator()(int k, int i) const {
+    return p[((long long)k * d + i) * B];
+  }
+};
+
+__device__ __forceinline__ float ldf(float v) { return v; }
+__device__ __forceinline__ float ldf(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T stf(float v);
+template <>
+__device__ __forceinline__ float stf<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 stf<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);  // round to nearest even, as astype(bf16)
+}
+
+// NaN-propagating min/max (jnp.minimum / torch.minimum semantics; fminf
+// would drop a NaN and hide a failed solve from the health flag).
+__device__ __forceinline__ float nmin(float a, float b) { return (a != a || a < b) ? a : b; }
+__device__ __forceinline__ float nmax(float a, float b) { return (a != a || a > b) ? a : b; }
+
+// ---- workspace: the stage payload and the IPM scratch, per scenario ----
+
+__host__ __device__ inline int ws_f32_planes(int N) {
+  return (N + 1) * NX      // gx
+         + N * NU          // gu
+         + N * 6           // bc
+         + N * NX          // r
+         + 2 * N * NU      // lub, uub
+         + 2 * (N + 1) * 3 // lxb, uxb
+         + NX              // dx0
+         + N * NU * NX     // K
+         + N * NU          // kf
+         + N * NX          // rh
+         + 2 * N * NU      // sul, suu
+         + 2 * (N + 1) * 3 // sxl, sxu
+         + (N + 1) * NX    // dx
+         + N * NU          // du
+         + (N + 1) * NX    // zx
+         + N * NU;         // zu
+}
+
+__host__ __device__ inline int ws_jac_planes(int N) {
+  return (N + 1) * 16 + N * 40 + N * 30;  // hq, a, b
+}
+
+// The QP payload of one scenario (the HBM tensors of the two-kernel path).
+template <typename JT>
+struct Payload {
+  View<JT> hq, a, b;  // curvature, stored in the jac dtype
+  View<float> gx, gu, bc, r, lub, uub, lxb, uxb, dx0;
+};
+
+struct IpmScratch {
+  View<float> K, kf, rh, sul, suu, sxl, sxu, dx, du;
+};
+
+template <typename JT>
+struct Workspace {
+  Payload<JT> q;
+  IpmScratch s;
+  View<float> zx, zu;  // primal deltas; the iterates change only in the fold
+};
+
+template <typename JT>
+__device__ inline Workspace<JT> carve_workspace(float* ws, JT* wj, long long B, int N,
+                                                long long b) {
+  Workspace<JT> w;
+  long long off = b;
+  auto take = [&](int s, int d) {
+    View<float> v{ws + off, d, B};
+    off += (long long)s * d * B;
+    return v;
+  };
+  w.q.gx = take(N + 1, NX);
+  w.q.gu = take(N, NU);
+  w.q.bc = take(N, 6);
+  w.q.r = take(N, NX);
+  w.q.lub = take(N, NU);
+  w.q.uub = take(N, NU);
+  w.q.lxb = take(N + 1, 3);
+  w.q.uxb = take(N + 1, 3);
+  w.q.dx0 = take(1, NX);
+  w.s.K = take(N, NU * NX);
+  w.s.kf = take(N, NU);
+  w.s.rh = take(N, NX);
+  w.s.sul = take(N, NU);
+  w.s.suu = take(N, NU);
+  w.s.sxl = take(N + 1, 3);
+  w.s.sxu = take(N + 1, 3);
+  w.s.dx = take(N + 1, NX);
+  w.s.du = take(N, NU);
+  w.zx = take(N + 1, NX);
+  w.zu = take(N, NU);
+  long long joff = b;
+  auto takej = [&](int s, int d) {
+    View<JT> v{wj + joff, d, B};
+    joff += (long long)s * d * B;
+    return v;
+  };
+  w.q.hq = takej(N + 1, 16);
+  w.q.a = takej(N, 40);
+  w.q.b = takej(N, 30);
+  return w;
+}
+
+// ---- linearization (ops/pallas/linearize.py) ----
+
+__device__ inline void f_cont(const float* x, const float* u, const float* fd,
+                              const StepConsts& c, float* out) {
+  const float qw = x[6], qx = x[7], qy = x[8], qz = x[9];
+  const float wx = u[0], wy = u[1], wz = u[2], cc = u[3];
+  float ax = 2.0f * (qx * qz + qw * qy) * cc;
+  float ay = 2.0f * (qy * qz - qw * qx) * cc;
+  float az = (1.0f - 2.0f * qx * qx - 2.0f * qy * qy) * cc - c.gravity;
+  if (fd) {
+    ax = ax + fd[0] * c.inv_mass;
+    ay = ay + fd[1] * c.inv_mass;
+    az = az + fd[2] * c.inv_mass;
+  }
+  out[0] = x[3];
+  out[1] = x[4];
+  out[2] = x[5];
+  out[3] = ax;
+  out[4] = ay;
+  out[5] = az;
+  out[6] = (-wx * qx - wy * qy - wz * qz) * 0.5f;
+  out[7] = (wx * qw + wz * qy - wy * qz) * 0.5f;
+  out[8] = (wy * qw - wz * qx + wx * qz) * 0.5f;
+  out[9] = (wz * qw + wy * qx - wx * qy) * 0.5f;
+}
+
+// Directional derivative of f_cont at (x, u) along (tx, tu); the forecast
+// force is a constant input and has no tangent.
+__device__ inline void f_cont_jvp(const float* x, const float* u, const float* tx,
+                                  const float* tu, float* out) {
+  const float qw = x[6], qx = x[7], qy = x[8], qz = x[9];
+  const float wx = u[0], wy = u[1], wz = u[2], cc = u[3];
+  const float tqw = tx[6], tqx = tx[7], tqy = tx[8], tqz = tx[9];
+  const float twx = tu[0], twy = tu[1], twz = tu[2], tc = tu[3];
+  const float s_ax = qx * qz + qw * qy;
+  const float t_ax = (tqx * qz + qx * tqz) + (tqw * qy + qw * tqy);
+  const float s_ay = qy * qz - qw * qx;
+  const float t_ay = (tqy * qz + qy * tqz) - (tqw * qx + qw * tqx);
+  const float s_az = 1.0f - 2.0f * qx * qx - 2.0f * qy * qy;
+  const float t_az = (-4.0f * qx) * tqx + (-4.0f * qy) * tqy;
+  out[0] = tx[3];
+  out[1] = tx[4];
+  out[2] = tx[5];
+  out[3] = (2.0f * t_ax) * cc + (2.0f * s_ax) * tc;
+  out[4] = (2.0f * t_ay) * cc + (2.0f * s_ay) * tc;
+  out[5] = t_az * cc + s_az * tc;
+  const float pwx = twx * qx + wx * tqx, pwy = twy * qy + wy * tqy, pwz = twz * qz + wz * tqz;
+  out[6] = 0.5f * ((-pwx - pwy) - pwz);
+  out[7] = 0.5f * (((twx * qw + wx * tqw) + (twz * qy + wz * tqy)) - (twy * qz + wy * tqz));
+  out[8] = 0.5f * (((twy * qw + wy * tqw) - (twz * qx + wz * tqx)) + (twx * qz + wx * tqz));
+  out[9] = 0.5f * (((twz * qw + wz * tqw) + (twy * qx + wy * tqx)) - (twx * qy + wx * tqy));
+}
+
+// RK4 step and its 8 varying tangent columns, by hand in forward mode:
+// columns 0-3 seed the quaternion states, 4-7 the controls (what
+// `jax.linearize` replays on the traced primal chain).
+__device__ inline void rk4_tangents(const float* x_in, const float* u, const float* fd,
+                                    const StepConsts& c, float* xn, float T[8][NX]) {
+  float x[NX];
+  for (int i = 0; i < NX; ++i) x[i] = x_in[i];
+  for (int col = 0; col < 8; ++col)
+    for (int i = 0; i < NX; ++i) T[col][i] = (col < 4 && i == 6 + col) ? 1.0f : 0.0f;
+  for (int sub = 0; sub < c.substeps; ++sub) {
+    float k1[NX], k2[NX], k3[NX], k4[NX], x2[NX], x3[NX], x4[NX];
+    f_cont(x, u, fd, c, k1);
+    for (int i = 0; i < NX; ++i) x2[i] = x[i] + c.rk_half * k1[i];
+    f_cont(x2, u, fd, c, k2);
+    for (int i = 0; i < NX; ++i) x3[i] = x[i] + c.rk_half * k2[i];
+    f_cont(x3, u, fd, c, k3);
+    for (int i = 0; i < NX; ++i) x4[i] = x[i] + c.rk_step * k3[i];
+    f_cont(x4, u, fd, c, k4);
+    for (int col = 0; col < 8; ++col) {
+      float tu[NU] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (col >= 4) tu[col - 4] = 1.0f;
+      float* tx = T[col];
+      float t1[NX], t2[NX], t3[NX], t4[NX], tt[NX];
+      f_cont_jvp(x, u, tx, tu, t1);
+      for (int i = 0; i < NX; ++i) tt[i] = tx[i] + c.rk_half * t1[i];
+      f_cont_jvp(x2, u, tt, tu, t2);
+      for (int i = 0; i < NX; ++i) tt[i] = tx[i] + c.rk_half * t2[i];
+      f_cont_jvp(x3, u, tt, tu, t3);
+      for (int i = 0; i < NX; ++i) tt[i] = tx[i] + c.rk_step * t3[i];
+      f_cont_jvp(x4, u, tt, tu, t4);
+      for (int i = 0; i < NX; ++i)
+        tx[i] = tx[i] + c.rk_sixth * (t1[i] + 2.0f * t2[i] + 2.0f * t3[i] + t4[i]);
+    }
+    for (int i = 0; i < NX; ++i)
+      x[i] = x[i] + c.rk_sixth * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
+  }
+  for (int i = 0; i < NX; ++i) xn[i] = x[i];
+}
+
+// Quaternion tracking error (ops/quat.py:error_vector).
+__device__ inline void qe_tiles(const float* q, const float* qr, float* qe) {
+  const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
+  const float qwr = qr[0], qxr = qr[1], qyr = qr[2], qzr = qr[3];
+  qe[0] = qwr * qx - qw * qxr + qyr * qz - qy * qzr;
+  qe[1] = qwr * qy - qw * qyr - qxr * qz + qx * qzr;
+  qe[2] = qxr * qy - qx * qyr + qwr * qz - qw * qzr;
+}
+
+// Closed-form Hq = Gq^T diag(wq) Gq (16) and Gq^T (wq * qe) (4).
+__device__ inline void hq_gxq_tiles(const float* qr, const float* qe, const float* wq,
+                                    float* hq, float* gxq) {
+  const float qw = qr[0], qx = qr[1], qy = qr[2], qz = qr[3];
+  const float cols[4][3] = {{-qx, -qy, -qz}, {qw, qz, -qy}, {-qz, qw, qx}, {qy, -qx, qw}};
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
+      hq[i * 4 + j] = wq[0] * cols[i][0] * cols[j][0] + wq[1] * cols[i][1] * cols[j][1] +
+                      wq[2] * cols[i][2] * cols[j][2];
+  const float v0 = wq[0] * qe[0], v1 = wq[1] * qe[1], v2 = wq[2] * qe[2];
+  for (int i = 0; i < 4; ++i) gxq[i] = cols[i][0] * v0 + cols[i][1] * v1 + cols[i][2] * v2;
+}
+
+// One shooting stage's QP terms (linearize._lin_stage_terms).
+__device__ inline void lin_stage_terms(const float* x, const float* x1, const float* u,
+                                       const float* xr, const float* ur, const float* fd,
+                                       const StepConsts& c, float* hq, float* gx, float* gu,
+                                       float* a40, float* b30, float* bc6, float* r) {
+  float qe[3], hq16[16], gxq[4];
+  qe_tiles(x + 6, xr + 6, qe);
+  hq_gxq_tiles(xr + 6, qe, c.q_diag + 7, hq16, gxq);
+  for (int j = 0; j < 16; ++j) hq[j] = c.stage_scale * hq16[j];
+  for (int i = 0; i < 6; ++i) gx[i] = c.gx_scale[i] * (x[i] - xr[i]);
+  for (int i = 0; i < 4; ++i) gx[6 + i] = c.stage_scale * gxq[i];
+  for (int l = 0; l < NU; ++l) gu[l] = c.gu_scale[l] * (u[l] - ur[l]);
+
+  float xn[NX], T[8][NX];
+  rk4_tangents(x, u, fd, c, xn, T);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 4; ++j) {
+      a40[i * 4 + j] = T[j][i];            // Apq
+      a40[12 + i * 4 + j] = T[j][3 + i];   // Avq
+    }
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) a40[24 + i * 4 + j] = T[j][6 + i];  // Aqq
+  for (int i = 0; i < 3; ++i) {
+    for (int l = 0; l < 3; ++l) {
+      b30[i * 3 + l] = T[4 + l][i];           // Bp omega columns
+      b30[9 + i * 3 + l] = T[4 + l][3 + i];   // Bv omega columns
+    }
+    bc6[i] = T[7][i];  // collective columns stay f32
+    bc6[3 + i] = T[7][3 + i];
+  }
+  for (int i = 0; i < 4; ++i)
+    for (int l = 0; l < 3; ++l) b30[18 + i * 3 + l] = T[4 + l][6 + i];  // Bq
+  for (int i = 0; i < NX; ++i) r[i] = xn[i] - x1[i];
+}
+
+// Terminal-node Gauss-Newton terms (cost scaling 1).
+__device__ inline void lin_terminal_terms(const float* x1, const float* xrT, const StepConsts& c,
+                                          float* hqT, float* gxT) {
+  float qe[3], gxq[4];
+  qe_tiles(x1 + 6, xrT + 6, qe);
+  hq_gxq_tiles(xrT + 6, qe, c.q_diag + 7, hqT, gxq);
+  for (int i = 0; i < 6; ++i) gxT[i] = c.q_diag[i] * (x1[i] - xrT[i]);
+  for (int i = 0; i < 4; ++i) gxT[6 + i] = gxq[i];
+}
+
+// ---- Riccati stage algebra (ops/pallas/riccati_sparse.py) ----
+
+struct Blocks {
+  float apq[3][4], avq[3][4], aqq[4][4];
+  float bp[3][4], bv[3][4];  // column 3 = collective (f32 payload)
+  float bq[4][3];
+};
+
+template <typename JT>
+__device__ inline void load_blocks(const Payload<JT>& q, int k, Blocks& m) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 4; ++j) {
+      m.apq[i][j] = ldf(q.a(k, i * 4 + j));
+      m.avq[i][j] = ldf(q.a(k, 12 + i * 4 + j));
+    }
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) m.aqq[i][j] = ldf(q.a(k, 24 + i * 4 + j));
+  for (int i = 0; i < 3; ++i) {
+    for (int l = 0; l < 3; ++l) {
+      m.bp[i][l] = ldf(q.b(k, i * 3 + l));
+      m.bv[i][l] = ldf(q.b(k, 9 + i * 3 + l));
+    }
+    m.bp[i][3] = q.bc(k, i);
+    m.bv[i][3] = q.bc(k, 3 + i);
+  }
+  for (int i = 0; i < 4; ++i)
+    for (int l = 0; l < 3; ++l) m.bq[i][l] = ldf(q.b(k, 18 + i * 3 + l));
+}
+
+// (B^T vec)[l]; bq lacks the collective column.
+__device__ inline float bt_dot(const Blocks& m, const float* v, int l) {
+  float s = m.bp[0][l] * v[0] + m.bp[1][l] * v[1] + m.bp[2][l] * v[2];
+  s = s + (m.bv[0][l] * v[3] + m.bv[1][l] * v[4] + m.bv[2][l] * v[5]);
+  if (l < 3) s = s + (m.bq[0][l] * v[6] + m.bq[1][l] * v[7] + m.bq[2][l] * v[8] + m.bq[3][l] * v[9]);
+  return s;
+}
+
+struct Glue {
+  float sig, corr, r_lo, r_up, rc_lo, rc_up;
+};
+
+// Slack elimination of one two-sided bound row.
+__device__ inline Glue glue_pair(float v, float lo, float hi, float s_lo, float s_up, float l_lo,
+                                 float l_up, float mu) {
+  Glue g;
+  g.r_lo = v - lo - s_lo;
+  g.r_up = hi - v - s_up;
+  g.rc_lo = s_lo * l_lo - mu;
+  g.rc_up = s_up * l_up - mu;
+  const float rs_lo = 1.0f / s_lo;
+  const float rs_up = 1.0f / s_up;
+  g.sig = l_lo * rs_lo + l_up * rs_up;
+  g.corr = -l_lo + l_up + (g.rc_lo + l_lo * g.r_lo) * rs_lo - (g.rc_up + l_up * g.r_up) * rs_up;
+  return g;
+}
+
+// P = diag6_term (+) HqT + diag(sigT on v), p = ghat_N.
+__device__ inline void terminal_init_core(const float* hqT, const float* gxT, const float* zxT,
+                                          const float* sigT, const float* corrT,
+                                          const StepConsts& c, float* P, float* p) {
+  for (int i = 0; i < NX * NX; ++i) P[i] = 0.0f;
+  for (int i = 0; i < 6; ++i) {
+    P[i * NX + i] = c.diag6_term[i];
+    p[i] = gxT[i] + c.diag6_term[i] * zxT[i];
+  }
+  for (int i = 0; i < 3; ++i) {
+    P[(3 + i) * NX + 3 + i] = P[(3 + i) * NX + 3 + i] + sigT[i];
+    p[3 + i] = p[3 + i] + corrT[i];
+  }
+  for (int i = 0; i < 4; ++i) {
+    for (int j = 0; j < 4; ++j) P[(6 + i) * NX + 6 + j] = hqT[i * 4 + j];
+    p[6 + i] = gxT[6 + i] + (hqT[i * 4 + 0] * zxT[6] + hqT[i * 4 + 1] * zxT[7] +
+                             hqT[i * 4 + 2] * zxT[8] + hqT[i * 4 + 3] * zxT[9]);
+  }
+}
+
+// Cholesky of a 4x4 SPD matrix: lower L and reciprocal diagonal Ld.
+__device__ inline void chol4(const float R[4][4], float L[4][4], float* Ld) {
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j <= i; ++j) {
+      float s = R[i][j];
+      for (int t = 0; t < j; ++t) s = s - L[i][t] * L[j][t];
+      if (i == j) {
+        L[i][j] = sqrtf(s);
+        Ld[i] = 1.0f / L[i][j];
+      } else {
+        L[i][j] = s * Ld[j];
+      }
+    }
+}
+
+// Solve (L L^T) x = rhs for one column.
+__device__ inline void chol4_solve(const float L[4][4], const float* Ld, const float* rhs,
+                                   float* x) {
+  float y[4];
+  for (int i = 0; i < 4; ++i) {
+    float s = rhs[i];
+    for (int t = 0; t < i; ++t) s = s - L[i][t] * y[t];
+    y[i] = s * Ld[i];
+  }
+  for (int i = 3; i >= 0; --i) {
+    float s = y[i];
+    for (int t = i + 1; t < 4; ++t) s = s - L[t][i] * x[t];
+    x[i] = s * Ld[i];
+  }
+}
+
+// One backward Riccati stage: fused ghat/rhat assembly, structured
+// products, Cholesky gain solve; P (10x10 row-major) and p update in place.
+__device__ inline void riccati_stage_core(float* P, float* p, const float Hq[4][4],
+                                          const float* gx, const float* gu, const Blocks& m,
+                                          const float* r, const float* zx, const float* zx1,
+                                          const float* zu, const float* sig_u,
+                                          const float* sig_x, const float* corr_u,
+                                          const float* corr_x, const StepConsts& c,
+                                          float K[NU][NX], float* kf, float* rh) {
+  const float h = c.h;
+  const float* zq = zx + 6;
+  float ghx[NX], ghu[NU];
+  for (int i = 0; i < 6; ++i) ghx[i] = gx[i] + c.diag6_stage[i] * zx[i];
+  for (int i = 0; i < 3; ++i) ghx[3 + i] = ghx[3 + i] + corr_x[i];
+  for (int i = 0; i < 4; ++i)
+    ghx[6 + i] = gx[6 + i] + (Hq[i][0] * zq[0] + Hq[i][1] * zq[1] + Hq[i][2] * zq[2] + Hq[i][3] * zq[3]);
+  for (int l = 0; l < NU; ++l) ghu[l] = gu[l] + c.rdiag_stage[l] * zu[l] + corr_u[l];
+
+  for (int i = 0; i < 3; ++i) {
+    rh[i] = zx[i] + h * zx[3 + i] +
+            (m.apq[i][0] * zq[0] + m.apq[i][1] * zq[1] + m.apq[i][2] * zq[2] + m.apq[i][3] * zq[3]) +
+            (m.bp[i][0] * zu[0] + m.bp[i][1] * zu[1] + m.bp[i][2] * zu[2] + m.bp[i][3] * zu[3]) +
+            r[i] - zx1[i];
+    rh[3 + i] = zx[3 + i] +
+                (m.avq[i][0] * zq[0] + m.avq[i][1] * zq[1] + m.avq[i][2] * zq[2] + m.avq[i][3] * zq[3]) +
+                (m.bv[i][0] * zu[0] + m.bv[i][1] * zu[1] + m.bv[i][2] * zu[2] + m.bv[i][3] * zu[3]) +
+                r[3 + i] - zx1[3 + i];
+  }
+  for (int i = 0; i < 4; ++i)
+    rh[6 + i] = (m.aqq[i][0] * zq[0] + m.aqq[i][1] * zq[1] + m.aqq[i][2] * zq[2] + m.aqq[i][3] * zq[3]) +
+                (m.bq[i][0] * zu[0] + m.bq[i][1] * zu[1] + m.bq[i][2] * zu[2]) + r[6 + i] - zx1[6 + i];
+
+  float Prp[NX];
+  for (int i = 0; i < NX; ++i) {
+    float s = P[i * NX] * rh[0];
+    for (int j = 1; j < NX; ++j) s = s + P[i * NX + j] * rh[j];
+    Prp[i] = s + p[i];
+  }
+
+  // PA columns: p-cols copy, v-cols h-shift, q-cols one 10x4 contraction
+  float PA[NX][NX], PB[NX][NU];
+  for (int i = 0; i < NX; ++i) {
+    const float* Pi = P + i * NX;
+    for (int j = 0; j < 3; ++j) {
+      PA[i][j] = Pi[j];
+      PA[i][3 + j] = h * Pi[j] + Pi[3 + j];
+    }
+    for (int j = 0; j < 4; ++j)
+      PA[i][6 + j] = (Pi[0] * m.apq[0][j] + Pi[1] * m.apq[1][j] + Pi[2] * m.apq[2][j]) +
+                     (Pi[3] * m.avq[0][j] + Pi[4] * m.avq[1][j] + Pi[5] * m.avq[2][j]) +
+                     (Pi[6] * m.aqq[0][j] + Pi[7] * m.aqq[1][j] + Pi[8] * m.aqq[2][j] + Pi[9] * m.aqq[3][j]);
+    for (int l = 0; l < NU; ++l) {
+      float s = (Pi[0] * m.bp[0][l] + Pi[1] * m.bp[1][l] + Pi[2] * m.bp[2][l]) +
+                (Pi[3] * m.bv[0][l] + Pi[4] * m.bv[1][l] + Pi[5] * m.bv[2][l]);
+      if (l < 3)
+        s = s + (Pi[6] * m.bq[0][l] + Pi[7] * m.bq[1][l] + Pi[8] * m.bq[2][l] + Pi[9] * m.bq[3][l]);
+      PB[i][l] = s;
+    }
+  }
+
+  // Qh = Hxx + diag(sig) + A^T P A: q-rows on/above the diagonal only
+  float Qh[NX][NX];
+  for (int j = 0; j < NX; ++j)
+    for (int i = 0; i < 3; ++i) {
+      Qh[i][j] = PA[i][j];
+      Qh[3 + i][j] = h * PA[i][j] + PA[3 + i][j];
+    }
+  for (int i = 0; i < 4; ++i) {
+    for (int j = 0; j < 6 + i; ++j) Qh[6 + i][j] = Qh[j][6 + i];
+    for (int j = 6 + i; j < NX; ++j)
+      Qh[6 + i][j] = (m.apq[0][i] * PA[0][j] + m.apq[1][i] * PA[1][j] + m.apq[2][i] * PA[2][j]) +
+                     (m.avq[0][i] * PA[3][j] + m.avq[1][i] * PA[4][j] + m.avq[2][i] * PA[5][j]) +
+                     (m.aqq[0][i] * PA[6][j] + m.aqq[1][i] * PA[7][j] + m.aqq[2][i] * PA[8][j] +
+                      m.aqq[3][i] * PA[9][j]);
+  }
+  for (int i = 0; i < 6; ++i) Qh[i][i] = Qh[i][i] + c.diag6_stage[i];
+  for (int i = 0; i < 3; ++i) Qh[3 + i][3 + i] = Qh[3 + i][3 + i] + sig_x[i];
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) Qh[6 + i][6 + j] = Qh[6 + i][6 + j] + Hq[i][j];
+
+  // S = B^T PA (4x10); Rh = diag + sig_u + B^T PB (upper, mirrored)
+  float S[NU][NX], Rh[4][4], col[NX];
+  for (int j = 0; j < NX; ++j) {
+    for (int t = 0; t < NX; ++t) col[t] = PA[t][j];
+    for (int l = 0; l < NU; ++l) S[l][j] = bt_dot(m, col, l);
+  }
+  for (int mm = 0; mm < NU; ++mm) {
+    for (int t = 0; t < NX; ++t) col[t] = PB[t][mm];
+    for (int l = 0; l <= mm; ++l) {
+      Rh[l][mm] = bt_dot(m, col, l);
+      if (mm > l) Rh[mm][l] = Rh[l][mm];
+    }
+  }
+  for (int l = 0; l < NU; ++l) Rh[l][l] = Rh[l][l] + (c.rdiag_stage[l] + sig_u[l]);
+
+  float qv[NX], rv[NU];
+  for (int i = 0; i < 3; ++i) {
+    qv[i] = ghx[i] + Prp[i];
+    qv[3 + i] = ghx[3 + i] + h * Prp[i] + Prp[3 + i];
+  }
+  for (int i = 0; i < 4; ++i)
+    qv[6 + i] = ghx[6 + i] + ((m.apq[0][i] * Prp[0] + m.apq[1][i] * Prp[1] + m.apq[2][i] * Prp[2]) +
+                              (m.avq[0][i] * Prp[3] + m.avq[1][i] * Prp[4] + m.avq[2][i] * Prp[5]) +
+                              (m.aqq[0][i] * Prp[6] + m.aqq[1][i] * Prp[7] + m.aqq[2][i] * Prp[8] +
+                               m.aqq[3][i] * Prp[9]));
+  for (int l = 0; l < NU; ++l) rv[l] = ghu[l] + bt_dot(m, Prp, l);
+
+  float L[4][4], Ld[4], rhs[4], sol[4];
+  chol4(Rh, L, Ld);
+  for (int k = 0; k < NX; ++k) {
+    for (int l = 0; l < NU; ++l) rhs[l] = S[l][k];
+    chol4_solve(L, Ld, rhs, sol);
+    for (int l = 0; l < NU; ++l) K[l][k] = -sol[l];
+  }
+  chol4_solve(L, Ld, rv, sol);
+  for (int l = 0; l < NU; ++l) kf[l] = -sol[l];
+
+  // P_new = Qh + S^T K (upper computed, lower mirrored); p_new = qv + S^T kf
+  for (int i = 0; i < NX; ++i)
+    for (int j = i; j < NX; ++j) {
+      const float v = Qh[i][j] + (S[0][i] * K[0][j] + S[1][i] * K[1][j] + S[2][i] * K[2][j] +
+                                  S[3][i] * K[3][j]);
+      P[i * NX + j] = v;
+      P[j * NX + i] = v;
+    }
+  for (int i = 0; i < NX; ++i)
+    p[i] = qv[i] + (S[0][i] * kf[0] + S[1][i] * kf[1] + S[2][i] * kf[2] + S[3][i] * kf[3]);
+}
+
+// dx_{k+1} = A dx_k + B du_k + rh (du == nullptr: zero-control rollout).
+__device__ inline void dyn_step(const Blocks& m, const float* rh, float h, const float* dx,
+                                const float* du, float* nxt) {
+  const float* dq = dx + 6;
+  for (int i = 0; i < 3; ++i) {
+    float a = dx[i] + h * dx[3 + i] +
+              (m.apq[i][0] * dq[0] + m.apq[i][1] * dq[1] + m.apq[i][2] * dq[2] + m.apq[i][3] * dq[3]);
+    float v = dx[3 + i] +
+              (m.avq[i][0] * dq[0] + m.avq[i][1] * dq[1] + m.avq[i][2] * dq[2] + m.avq[i][3] * dq[3]);
+    if (du) {
+      a = a + (m.bp[i][0] * du[0] + m.bp[i][1] * du[1] + m.bp[i][2] * du[2] + m.bp[i][3] * du[3]);
+      v = v + (m.bv[i][0] * du[0] + m.bv[i][1] * du[1] + m.bv[i][2] * du[2] + m.bv[i][3] * du[3]);
+    }
+    nxt[i] = a + rh[i];
+    nxt[3 + i] = v + rh[3 + i];
+  }
+  for (int i = 0; i < 4; ++i) {
+    float q = m.aqq[i][0] * dq[0] + m.aqq[i][1] * dq[1] + m.aqq[i][2] * dq[2] + m.aqq[i][3] * dq[3];
+    if (du) q = q + (m.bq[i][0] * du[0] + m.bq[i][1] * du[1] + m.bq[i][2] * du[2]);
+    nxt[6 + i] = q + rh[6 + i];
+  }
+}
+
+// Fraction-to-boundary ratio; 2 where dv >= 0 (callers clamp at 1).
+__device__ inline float ratio(float v, float dv, float tau) {
+  return dv < 0.0f ? (-tau * v) / dv : 2.0f;
+}
+
+struct Steps {
+  float ds_lo, ds_up, dl_lo, dl_up, ap, ad;
+};
+
+// Slack/dual direction recovery for one bound row and its step ratios.
+__device__ inline Steps bound_steps(float d, const Glue& g, float s_lo, float s_up, float l_lo,
+                                    float l_up, float tau) {
+  Steps st;
+  st.ds_lo = d + g.r_lo;
+  st.ds_up = -d + g.r_up;
+  st.dl_lo = -(g.rc_lo + l_lo * st.ds_lo) / s_lo;
+  st.dl_up = -(g.rc_up + l_up * st.ds_up) / s_up;
+  st.ap = nmin(ratio(s_lo, st.ds_lo, tau), ratio(s_up, st.ds_up, tau));
+  st.ad = nmin(ratio(l_lo, st.dl_lo, tau), ratio(l_up, st.dl_up, tau));
+  return st;
+}
+
+// ---- the whole IPM (ops/pallas/ipm_whole.py) ----
+
+__device__ inline void slack_init_pair(float lo, float hi, float v, float s_min, float& s_lo,
+                                       float& s_up) {
+  const float rng = hi - lo;
+  const float floor_ = nmin(s_min * nmin(rng, 1e3f), 0.5f * rng);
+  s_lo = nmax(fabsf(v - lo), floor_);
+  s_up = nmax(fabsf(hi - v), floor_);
+}
+
+// Pass-A accumulators: step ratios and the complementarity partials.
+struct StepAcc {
+  float ap, ad, c1, c2, c3, c4;
+  __device__ void row(float v, float d, float lo, float hi, float s_lo, float s_up, float l_lo,
+                      float l_up, float mu, float tau) {
+    const Glue g = glue_pair(v, lo, hi, s_lo, s_up, l_lo, l_up, mu);
+    const Steps st = bound_steps(d, g, s_lo, s_up, l_lo, l_up, tau);
+    ap = nmin(ap, st.ap);
+    ad = nmin(ad, st.ad);
+    c1 = c1 + s_lo * l_lo + s_up * l_up;
+    c2 = c2 + st.ds_lo * l_lo + st.ds_up * l_up;
+    c3 = c3 + s_lo * st.dl_lo + s_up * st.dl_up;
+    c4 = c4 + st.ds_lo * st.dl_lo + st.ds_up * st.dl_up;
+  }
+};
+
+// Pass-B update of one bound row's slacks and duals, in place.
+__device__ inline void update_row(float v, float d, float lo, float hi, float& s_lo, float& s_up,
+                                  float& l_lo, float& l_up, float mu, float ap, float ad) {
+  const Glue g = glue_pair(v, lo, hi, s_lo, s_up, l_lo, l_up, mu);
+  const float ds_lo = d + g.r_lo;
+  const float ds_up = -d + g.r_up;
+  const float nl_lo = l_lo + ad * (-(g.rc_lo + l_lo * ds_lo) / s_lo);
+  const float nl_up = l_up + ad * (-(g.rc_up + l_up * ds_up) / s_up);
+  s_lo = s_lo + ap * ds_lo;
+  s_up = s_up + ap * ds_up;
+  l_lo = nl_lo;
+  l_up = nl_up;
+}
+
+// The whole warm-started IPM over one scenario's payload. The duals update
+// in place: each thread reads the carried value of its own element before
+// writing it. zx/zu receive the primal deltas; with xb/ub given (p != null)
+// the SQP axpy is folded into them at the end.
+template <typename JT>
+__device__ void ipm_whole(const Payload<JT>& q, const IpmScratch& s, View<float> zx,
+                          View<float> zu, View<float> lul, View<float> luu, View<float> lxl,
+                          View<float> lxu, float* mu_io, float* eq_out, View<float> xb,
+                          View<float> ub, const StepConsts& c) {
+  const int N = c.n_stages;
+  const float mu_w = *mu_io;
+  const bool cold = mu_w < 0.0f;
+  const float n_cons = (float)(2 * N * NU + 2 * (N + 1) * 3);
+  float dx0[NX];
+  for (int i = 0; i < NX; ++i) dx0[i] = q.dx0(0, i);
+  auto mix_lam = [&](float carried, float sl) { return cold ? c.mu0 / sl : nmax(carried, 1e-12f); };
+  auto init_x_node = [&](int k, const float* z, float c0) {
+    for (int i = 0; i < 3; ++i) {
+      float s_lo, s_up;
+      slack_init_pair(q.lxb(k, i), q.uxb(k, i), z[3 + i], c.s_min, s_lo, s_up);
+      s.sxl(k, i) = s_lo;
+      s.sxu(k, i) = s_up;
+      const float ll = mix_lam(lxl(k, i), s_lo);
+      const float lu = mix_lam(lxu(k, i), s_up);
+      lxl(k, i) = ll;
+      lxu(k, i) = lu;
+      c0 = c0 + s_lo * ll + s_up * lu;
+    }
+    return c0;
+  };
+
+  // zero-control dynamics-exact start, slacks at the zero iterate, dual warm
+  // mixing, complementarity-derived barrier start
+  Blocks m;
+  float z[NX], nxt[NX], rk[NX];
+  for (int i = 0; i < NX; ++i) z[i] = dx0[i];
+  float c0 = 0.0f;
+  for (int k = 0; k < N; ++k) {
+    for (int l = 0; l < NU; ++l) {
+      float s_lo, s_up;
+      slack_init_pair(q.lub(k, l), q.uub(k, l), 0.0f, c.s_min, s_lo, s_up);
+      s.sul(k, l) = s_lo;
+      s.suu(k, l) = s_up;
+      const float ll = mix_lam(lul(k, l), s_lo);
+      const float lu = mix_lam(luu(k, l), s_up);
+      lul(k, l) = ll;
+      luu(k, l) = lu;
+      c0 = c0 + s_lo * ll + s_up * lu;
+      zu(k, l) = 0.0f;
+    }
+    for (int i = 0; i < NX; ++i) zx(k, i) = z[i];
+    c0 = init_x_node(k, z, c0);
+    load_blocks(q, k, m);
+    for (int i = 0; i < NX; ++i) rk[i] = q.r(k, i);
+    dyn_step(m, rk, c.h, z, nullptr, nxt);
+    for (int i = 0; i < NX; ++i) z[i] = nxt[i];
+  }
+  for (int i = 0; i < NX; ++i) zx(N, i) = z[i];
+  c0 = init_x_node(N, z, c0);
+  float mu = cold ? c.mu0 : nmin(nmax(c.sigma * c0 / n_cons, c.mu_min), c.mu0);
+
+  float res2 = 0.0f, ap = 0.0f;
+  for (int it = 0; it < c.num_iters; ++it) {
+    // backward Riccati sweep, stages N-1..0
+    float P[NX * NX], p[NX];
+    {
+      float zxT[NX], hqT[16], gxT[NX], sigT[3], corrT[3];
+      for (int i = 0; i < NX; ++i) zxT[i] = zx(N, i);
+      for (int i = 0; i < 3; ++i) {
+        const Glue g = glue_pair(zxT[3 + i], q.lxb(N, i), q.uxb(N, i), s.sxl(N, i), s.sxu(N, i),
+                                 lxl(N, i), lxu(N, i), mu);
+        sigT[i] = g.sig;
+        corrT[i] = g.corr;
+      }
+      for (int j = 0; j < 16; ++j) hqT[j] = ldf(q.hq(N, j));
+      for (int i = 0; i < NX; ++i) gxT[i] = q.gx(N, i);
+      terminal_init_core(hqT, gxT, zxT, sigT, corrT, c, P, p);
+    }
+    float r2 = 0.0f;
+    for (int k = N - 1; k >= 0; --k) {
+      float Hq[4][4], gx[NX], gu[NU], zxk[NX], zx1[NX], zuk[NU];
+      float sig_u[NU], corr_u[NU], sig_x[3], corr_x[3], K[NU][NX], kf[NU], rh[NX];
+      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j) Hq[i][j] = ldf(q.hq(k, i * 4 + j));
+      for (int i = 0; i < NX; ++i) {
+        gx[i] = q.gx(k, i);
+        rk[i] = q.r(k, i);
+        zxk[i] = zx(k, i);
+        zx1[i] = zx(k + 1, i);
+      }
+      for (int l = 0; l < NU; ++l) {
+        gu[l] = q.gu(k, l);
+        zuk[l] = zu(k, l);
+      }
+      load_blocks(q, k, m);
+      for (int l = 0; l < NU; ++l) {
+        const Glue g = glue_pair(zuk[l], q.lub(k, l), q.uub(k, l), s.sul(k, l), s.suu(k, l),
+                                 lul(k, l), luu(k, l), mu);
+        sig_u[l] = g.sig;
+        corr_u[l] = g.corr;
+      }
+      for (int i = 0; i < 3; ++i) {
+        const Glue g = glue_pair(zxk[3 + i], q.lxb(k, i), q.uxb(k, i), s.sxl(k, i), s.sxu(k, i),
+                                 lxl(k, i), lxu(k, i), mu);
+        sig_x[i] = g.sig;
+        corr_x[i] = g.corr;
+      }
+      riccati_stage_core(P, p, Hq, gx, gu, m, rk, zxk, zx1, zuk, sig_u, sig_x, corr_u, corr_x, c,
+                         K, kf, rh);
+      for (int l = 0; l < NU; ++l) {
+        for (int j = 0; j < NX; ++j) s.K(k, l * NX + j) = K[l][j];
+        s.kf(k, l) = kf[l];
+      }
+      float sq = rh[0] * rh[0];
+      for (int i = 0; i < NX; ++i) {
+        s.rh(k, i) = rh[i];
+        if (i > 0) sq = sq + rh[i] * rh[i];
+      }
+      r2 = r2 + sq;
+    }
+    float dx[NX];
+    for (int i = 0; i < NX; ++i) dx[i] = dx0[i] - zx(0, i);
+    {
+      float sq = dx[0] * dx[0];
+      for (int i = 1; i < NX; ++i) sq = sq + dx[i] * dx[i];
+      r2 = r2 + sq;
+    }
+
+    // pass A: rollout, fraction-to-boundary and complementarity partials
+    StepAcc acc{2.0f, 2.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k = 0; k < N; ++k) {
+      float du[NU];
+      for (int l = 0; l < NU; ++l) {
+        float sdu = s.K(k, l * NX) * dx[0];
+        for (int j = 1; j < NX; ++j) sdu = sdu + s.K(k, l * NX + j) * dx[j];
+        du[l] = sdu + s.kf(k, l);
+      }
+      for (int i = 0; i < NX; ++i) s.dx(k, i) = dx[i];
+      for (int l = 0; l < NU; ++l) s.du(k, l) = du[l];
+      for (int l = 0; l < NU; ++l)
+        acc.row(zu(k, l), du[l], q.lub(k, l), q.uub(k, l), s.sul(k, l), s.suu(k, l), lul(k, l),
+                luu(k, l), mu, c.tau);
+      for (int i = 0; i < 3; ++i)
+        acc.row(zx(k, 3 + i), dx[3 + i], q.lxb(k, i), q.uxb(k, i), s.sxl(k, i), s.sxu(k, i),
+                lxl(k, i), lxu(k, i), mu, c.tau);
+      load_blocks(q, k, m);
+      for (int i = 0; i < NX; ++i) rk[i] = s.rh(k, i);
+      dyn_step(m, rk, c.h, dx, du, nxt);
+      for (int i = 0; i < NX; ++i) dx[i] = nxt[i];
+    }
+    for (int i = 0; i < NX; ++i) s.dx(N, i) = dx[i];
+    for (int i = 0; i < 3; ++i)
+      acc.row(zx(N, 3 + i), dx[3 + i], q.lxb(N, i), q.uxb(N, i), s.sxl(N, i), s.sxu(N, i),
+              lxl(N, i), lxu(N, i), mu, c.tau);
+    ap = nmin(acc.ap, 1.0f);
+    const float ad = nmin(acc.ad, 1.0f);
+
+    // pass B: recover the slack/dual directions and apply the step
+    auto update_x_node = [&](int k) {
+      for (int i = 0; i < 3; ++i) {
+        float s_lo = s.sxl(k, i), s_up = s.sxu(k, i), l_lo = lxl(k, i), l_up = lxu(k, i);
+        update_row(zx(k, 3 + i), s.dx(k, 3 + i), q.lxb(k, i), q.uxb(k, i), s_lo, s_up, l_lo,
+                   l_up, mu, ap, ad);
+        s.sxl(k, i) = s_lo;
+        s.sxu(k, i) = s_up;
+        lxl(k, i) = l_lo;
+        lxu(k, i) = l_up;
+      }
+      for (int i = 0; i < NX; ++i) zx(k, i) = zx(k, i) + ap * s.dx(k, i);
+    };
+    for (int k = 0; k < N; ++k) {
+      for (int l = 0; l < NU; ++l) {
+        float s_lo = s.sul(k, l), s_up = s.suu(k, l), l_lo = lul(k, l), l_up = luu(k, l);
+        const float d = s.du(k, l);
+        update_row(zu(k, l), d, q.lub(k, l), q.uub(k, l), s_lo, s_up, l_lo, l_up, mu, ap, ad);
+        s.sul(k, l) = s_lo;
+        s.suu(k, l) = s_up;
+        lul(k, l) = l_lo;
+        luu(k, l) = l_up;
+        zu(k, l) = zu(k, l) + ap * d;
+      }
+      update_x_node(k);
+    }
+    update_x_node(N);
+
+    const float comp = (acc.c1 + ap * acc.c2 + ad * acc.c3 + ap * ad * acc.c4) / n_cons;
+    mu = nmax(c.sigma * comp, c.mu_min);
+    res2 = r2;
+  }
+  *mu_io = mu;
+  *eq_out = (1.0f - ap) * sqrtf(res2);
+
+  if (xb.p) {
+    for (int k = 0; k <= N; ++k) {
+      for (int i = 0; i < NX; ++i) xb(k, i) = zx(k, i) + xb(k, i);
+      if (k < N)
+        for (int l = 0; l < NU; ++l) ub(k, l) = zu(k, l) + ub(k, l);
+    }
+  }
+}
+
+// ---- the whole control step (ops/pallas/step_whole.py) ----
+
+template <typename JT>
+__device__ void step_whole_scenario(const StepPtrs& a, const StepConsts& c, long long B,
+                                    long long b) {
+  const int N = c.n_stages;
+  Workspace<JT> w = carve_workspace<JT>(a.ws, static_cast<JT*>(a.wj), B, N, b);
+  const View<float> xb{a.xb + b, NX, B}, ub{a.ub + b, NU, B};
+  const View<const float> xr{a.xr + b, NX, B}, ur{a.ur + b, NU, B};
+  const View<const float> x0{a.x0 + b, NX, B};
+  const bool with_dist = c.with_dist != 0;
+  const View<const float> fdv{with_dist ? a.fd + b : nullptr, 3, B};
+
+  // phase 1: linearize every stage into the workspace
+  for (int k = 0; k < N; ++k) {
+    float x[NX], x1[NX], u[NU], xrk[NX], urk[NU], fd[3];
+    for (int i = 0; i < NX; ++i) {
+      x[i] = xb(k, i);
+      x1[i] = xb(k + 1, i);
+      xrk[i] = xr(k, i);
+    }
+    for (int l = 0; l < NU; ++l) {
+      u[l] = ub(k, l);
+      urk[l] = ur(k, l);
+    }
+    if (with_dist)
+      for (int t = 0; t < 3; ++t) fd[t] = fdv(k, t);
+    float hq[16], gx[NX], gu[NU], a40[40], b30[30], bc6[6], r[NX];
+    lin_stage_terms(x, x1, u, xrk, urk, with_dist ? fd : nullptr, c, hq, gx, gu, a40, b30, bc6, r);
+    for (int j = 0; j < 16; ++j) w.q.hq(k, j) = stf<JT>(hq[j]);
+    for (int i = 0; i < NX; ++i) {
+      w.q.gx(k, i) = gx[i];
+      w.q.r(k, i) = r[i];
+    }
+    for (int l = 0; l < NU; ++l) w.q.gu(k, l) = gu[l];
+    for (int j = 0; j < 40; ++j) w.q.a(k, j) = stf<JT>(a40[j]);
+    for (int j = 0; j < 30; ++j) w.q.b(k, j) = stf<JT>(b30[j]);
+    for (int j = 0; j < 6; ++j) w.q.bc(k, j) = bc6[j];
+    // bound residuals: u box every stage, v box on interior nodes (nodes 0
+    // and N get +-big below)
+    for (int l = 0; l < NU; ++l) {
+      w.q.lub(k, l) = c.u_lo[l] - u[l];
+      w.q.uub(k, l) = c.u_hi[l] - u[l];
+    }
+    for (int t = 0; t < 3; ++t) {
+      w.q.lxb(k, t) = c.v_lo[t] - x[3 + t];
+      w.q.uxb(k, t) = c.v_hi[t] - x[3 + t];
+    }
+  }
+  {
+    float x1T[NX], xrT[NX], hqT[16], gxT[NX];
+    for (int i = 0; i < NX; ++i) {
+      x1T[i] = xb(N, i);
+      xrT[i] = xr(N, i);
+    }
+    lin_terminal_terms(x1T, xrT, c, hqT, gxT);
+    for (int j = 0; j < 16; ++j) w.q.hq(N, j) = stf<JT>(hqT[j]);
+    for (int i = 0; i < NX; ++i) {
+      w.q.gx(N, i) = gxT[i];
+      w.q.dx0(0, i) = x0(0, i) - xb(0, i);
+    }
+    for (int t = 0; t < 3; ++t) {
+      w.q.lxb(0, t) = -c.big;
+      w.q.uxb(0, t) = c.big;
+      w.q.lxb(N, t) = -c.big;
+      w.q.uxb(N, t) = c.big;
+    }
+  }
+
+  // phases 2+3: the whole IPM over the workspace payload, axpy folded
+  ipm_whole<JT>(w.q, w.s, w.zx, w.zu, View<float>{a.lu_lo + b, NU, B},
+                View<float>{a.lu_up + b, NU, B}, View<float>{a.lx_lo + b, 3, B},
+                View<float>{a.lx_up + b, 3, B}, a.mu + b, a.eq + b, xb, ub, c);
+}
+
+}  // namespace ndp

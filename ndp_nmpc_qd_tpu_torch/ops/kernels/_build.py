@@ -1,0 +1,104 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` compiles with nvcc into a shared library of its own
+with a plain C interface (no PyTorch headers, so a build takes seconds) and
+is loaded with ctypes. Libraries are built at first use into `build/kernels/`
+beside the package (`NDP_TORCH_BUILD_DIR` overrides it), named by a hash of
+the sources and flags so that an edited source is rebuilt. A failed build
+raises with the compiler's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+SOURCES = ("step_whole",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# name -> {"seconds": wall seconds of its nvcc (0 when found built),
+#          "cached": bool, "log": nvcc/ptxas output}
+build_info: dict = {}
+_libs: dict = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("NDP_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def nvcc() -> str:
+    cands = ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        cands.insert(0, os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    for cand in cands:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> None:
+    """Compile every named source not built yet: one nvcc per source, all
+    started together."""
+    todo = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            if name not in build_info:
+                log = out.with_suffix(".log")
+                build_info[name] = dict(
+                    seconds=0.0, cached=True,
+                    log=log.read_text() if log.exists() else "",
+                )
+        else:
+            todo[name] = out
+    if not todo:
+        return
+    build_dir().mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.parent / f"{out.stem}.tmp{os.getpid()}.so"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        procs[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+        build_info[name] = dict(seconds=seconds, cached=False, log=log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    if name not in _libs:
+        build((name,))
+        _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+    return _libs[name]

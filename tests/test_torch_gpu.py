@@ -1,0 +1,82 @@
+"""The fused control-step CUDA kernel vs its plain version, on the card.
+
+Marked `gpu`: it skips where no card is present (decided inside the test).
+Run on the card with `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
+(the repo's conftest sets up JAX, which the card's machine need not have).
+Tolerances as in chip_smoke.py. f32 payload: iterates atol 1e-4, duals and
+mu rtol 1e-3 at their own scale (atol 1e-3 max|ref|, so warm-tick duals
+near mu ~ 1e-11 are held too), since nvcc contracts mul+add into FMA and
+torch rounds each op, over 3 IPM iterations. bf16 payload: u0 atol 1e-3,
+iterates within 2^-8 of each tensor's largest entry, duals and mu rtol 2^-8
+at their own scale (one bf16 ulp of a Jacobian entry may flip). Both: `ok`
+identical.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ndp_nmpc_qd_tpu_torch.ops.kernels import step_whole
+from ndp_nmpc_qd_tpu_torch.ops.layout import pack
+from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
+from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import whole_step_consts
+from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import cold_warm
+from ndp_nmpc_qd_tpu_torch.solver.rti import first_control_and_health
+
+BF16_ULP = 2.0 ** -8
+
+
+def assert_at_own_scale(got, ref, rtol, msg):
+    """|got - ref| <= rtol |ref| + rtol max|ref|."""
+    scale = ref.abs().max()
+    err = float(((got - ref).abs() / (scale + ref.abs()).clamp_min(1e-30)).max())
+    assert err <= rtol, f"{msg}: {err} > {rtol} (max|ref| {float(scale):.3g})"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("jac_bf16", [False, True])
+def test_kernel_matches_plain_on_the_card(jac_bf16):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    cfg = NdpNmpcConfig()
+    N, B = cfg.ocp.N_node, 300  # not a multiple of the 128-thread block
+    consts = whole_step_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16, num_iters=3)
+    rng = np.random.default_rng(1)
+    xr = torch.zeros(B, N + 1, 10, device=dev)
+    xr[..., 6] = 1.0
+    x0 = xr[:, 0].clone()
+    x0[:, 0:3] += torch.as_tensor(rng.uniform(-1, 1, (B, 3)), dtype=torch.float32, device=dev)
+    ur = torch.zeros(B, N, 4, device=dev)
+    ur[..., 3] = cfg.vehicle.gravity
+    fd = torch.as_tensor(0.3 * rng.standard_normal((B, N + 1, 3)), dtype=torch.float32, device=dev)
+    ins = (pack(xr), pack(ur), pack(fd), pack(x0[:, None]))
+    state_k = [pack(xr).clone(), pack(ur).clone(), *cold_warm(N, B, torch.float32, dev)]
+    state_p = [t.clone() for t in state_k]
+    ws = step_whole.make_workspace(B, N, jac_bf16, dev)
+    before = step_whole.control_step_whole.launches
+    for tick in range(3):
+        eq_k = step_whole.control_step_whole(
+            state_k[0], state_k[1], *ins, *state_k[2:], workspace=ws, **consts
+        )
+        outs = step_whole.control_step_whole_plain(state_p[0], state_p[1], *ins, *state_p[2:], **consts)
+        for dst, src in zip(state_p, outs[:7]):
+            dst.copy_(src)
+        torch.cuda.synchronize()
+        msg = f"tick {tick}"
+        u0_k, ok_k = first_control_and_health(cfg.ocp, state_k[0], state_k[1], eq_k)
+        u0_p, ok_p = first_control_and_health(cfg.ocp, state_p[0], state_p[1], outs[7])
+        if jac_bf16:
+            torch.testing.assert_close(u0_k, u0_p, rtol=0, atol=1e-3, msg=msg)
+            for got, ref in zip(state_k[:2], state_p[:2]):
+                err = float((got - ref).abs().max() / ref.abs().max())
+                assert err <= BF16_ULP, f"{msg}: iterates off by {err} of their largest entry"
+            for got, ref in zip(state_k[2:], state_p[2:]):
+                assert_at_own_scale(got, ref, BF16_ULP, msg)
+        else:
+            for got, ref in zip(state_k[:2], state_p[:2]):
+                torch.testing.assert_close(got, ref, rtol=0, atol=1e-4, msg=msg)
+            for got, ref in zip(state_k[2:], state_p[2:]):
+                assert_at_own_scale(got, ref, 1e-3, msg)
+        assert torch.equal(ok_k, ok_p), msg
+    assert step_whole.control_step_whole.launches == before + 3

@@ -1,0 +1,146 @@
+"""PyTorch port vs JAX: the fused whole-step controller over 3 chained ticks.
+
+The JAX side is `make_batched_rti_controller(..., packed_state=True,
+whole_step=True)`, which reaches the `control_step_whole` Pallas kernel in
+interpret mode; the port runs its plain version on the CPU. Same numpy
+inputs (the case of `test_packed_state.py`), each side fed its own package's
+f32 downwash forecast. Tolerances are the JAX package's own for this kernel
+(`test_packed_state.py:62-78`): u0 atol 1e-5; eq_res rtol 1e-4 / atol 1e-6;
+iterates atol 2e-5; duals rtol 1e-4 / atol 1e-5; `ok` identical. The
+duals and mu are also held at rtol 1e-4 with atol 1e-4 max|ref|, since on
+warm ticks they are far below the fixed atol.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ndp_nmpc_qd_tpu.models import downwash_mlp as j_mlp
+from ndp_nmpc_qd_tpu.params import NdpNmpcConfig
+from ndp_nmpc_qd_tpu.solver import rti as j_rti
+from ndp_nmpc_qd_tpu_torch import convert
+from ndp_nmpc_qd_tpu_torch.models import downwash_mlp as t_mlp
+from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig as PortConfig
+from ndp_nmpc_qd_tpu_torch.solver import rti as t_rti
+
+ASSET = os.path.join(
+    os.path.dirname(__file__), "..", "assets", "downwash_analytic_sn4.npz"
+)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain version runs ~330k ops on (8,) tensors a tick; intra-op
+    threads only add overhead there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def make_case(B, N, seed=3):
+    """x0 hovering at random offsets, hover references at the origin, the
+    other drone's horizon 0.9 m above the reference (numpy, f32)."""
+    rng = np.random.default_rng(seed)
+    hover = np.array([0, 0, 0, 0, 0, 0, 1, 0, 0, 0], np.float32)
+    x0 = np.tile(hover, (B, 1))
+    x0[:, 0:3] = rng.uniform(-2.0, 2.0, (B, 3))
+    xr = np.tile(hover, (B, N + 1, 1))
+    ur = np.tile(np.array([0, 0, 0, 9.81], np.float32), (B, N, 1))
+    other = xr.copy()
+    other[:, :, 2] += 0.9
+    return x0, xr, ur, other
+
+
+def jax_controller(cfg, qp_iters, jac_bf16):
+    return j_rti.make_batched_rti_controller(
+        cfg.ocp, cfg.vehicle, with_disturbance=True, qp_iters=qp_iters,
+        backend="pallas", interpret=True, warm_start=True, lqr_start=False,
+        whole_ipm=True, packed_state=True, whole_step=True, jac_bf16=jac_bf16,
+    )
+
+
+def port_controller(qp_iters, jac_bf16):
+    cfg = PortConfig()
+    return t_rti.make_batched_rti_controller(
+        cfg.ocp, cfg.vehicle, with_disturbance=True, qp_iters=qp_iters,
+        warm_start=True, lqr_start=False, whole_ipm=True, packed_state=True,
+        whole_step=True, jac_bf16=jac_bf16, device="cpu",
+    )
+
+
+def test_whole_step_controller_matches_jax():
+    cfg = NdpNmpcConfig()
+    N, B = cfg.ocp.N_node, 8
+    x0, xr, ur, other = make_case(B, N)
+    r_h = cfg.downwash.r_horiz
+
+    params = j_mlp.load_npz(ASSET)
+    f_j = j_mlp.predict_downwash(
+        params, jnp.asarray(other), jnp.asarray(xr), r_horiz=r_h,
+        ego_gate_pos=jnp.asarray(x0)[:, 0:3],
+    )
+    mlp = convert.mlp_from_numpy(
+        [np.asarray(w) for w in params.weights],
+        [np.asarray(b) for b in params.biases], device="cpu",
+    )
+    with torch.no_grad():
+        f_t = t_mlp.predict_downwash(
+            mlp, torch.as_tensor(other), torch.as_tensor(xr), r_horiz=r_h,
+            ego_gate_pos=torch.as_tensor(x0)[:, 0:3],
+        )
+    assert float(np.abs(np.asarray(f_j)).max()) > 0.1  # the gate is active
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=1e-5, atol=1e-6)
+
+    ctl_j = jax_controller(cfg, 3, jac_bf16=False)
+    ctl_t = port_controller(3, jac_bf16=False)
+    st_j = ctl_j.reset(jnp.asarray(xr), jnp.asarray(ur))
+    st_t = ctl_t.reset(torch.as_tensor(xr), torch.as_tensor(ur))
+    for tick in range(3):
+        u_j, st_j, info_j = ctl_j.update(
+            st_j, jnp.asarray(x0), jnp.asarray(xr), jnp.asarray(ur), f_j
+        )
+        u_t, st_t, info_t = ctl_t.update(st_t, x0, xr, ur, f_t)
+        msg = f"tick {tick}"
+        np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), atol=1e-5, err_msg=msg)
+        np.testing.assert_allclose(
+            info_t.eq_res.numpy(), np.asarray(info_j.eq_res), rtol=1e-4, atol=1e-6,
+            err_msg=msg,
+        )
+        np.testing.assert_array_equal(info_t.ok.numpy(), np.asarray(info_j.ok))
+        xb_j, ub_j = j_rti.unpack_iterates(st_j, B)
+        xb_t, ub_t = t_rti.unpack_iterates(st_t, B)
+        np.testing.assert_allclose(xb_t.numpy(), np.asarray(xb_j), atol=2e-5, err_msg=msg)
+        np.testing.assert_allclose(ub_t.numpy(), np.asarray(ub_j), atol=2e-5, err_msg=msg)
+        want = convert.rti_state_from_numpy(
+            np.asarray(st_j.x_bar), np.asarray(st_j.u_bar),
+            [np.asarray(a) for a in st_j.ipm], B, device="cpu",
+        )
+        for got, ref in zip(st_t.ipm, want.ipm):
+            np.testing.assert_allclose(
+                got.numpy(), ref.numpy(), rtol=1e-4, atol=1e-5, err_msg=msg
+            )
+            # the warm-tick duals sit near mu (~1e-8), under that atol: hold
+            # them at their own scale as well
+            scale = float(np.abs(ref.numpy()).max())
+            np.testing.assert_allclose(
+                got.numpy(), ref.numpy(), rtol=1e-4, atol=1e-4 * scale, err_msg=msg
+            )
+        np.testing.assert_allclose(
+            info_t.mu.numpy(), np.asarray(info_j.mu), rtol=1e-4, atol=1e-5
+        )
+
+
+@pytest.mark.parametrize("bad", [
+    dict(packed_state=False), dict(whole_step=False), dict(backend="jax"),
+    dict(backend="pallas_packed"),
+])
+def test_unported_combinations_raise(bad):
+    cfg = PortConfig()
+    kw = dict(packed_state=True, whole_step=True, device="cpu")
+    kw.update(bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_rti.make_batched_rti_controller(cfg.ocp, cfg.vehicle, **kw)

@@ -1,0 +1,75 @@
+"""Where the PyTorch port's control step spends its device time.
+
+Runs the deployed fused control step of `chip_smoke.py`'s main path (bf16
+downwash forecast + whole-step RTI update, warm start, qp_iters=3, bf16
+Jacobians) at B=65536 on one CUDA card for 10 ticks under `torch.profiler`,
+and prints the device time per kernel name, the step's wall time per tick
+and the device's busy share of it.
+
+    python3 tools/profile_torch_step.py
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import ASSET, CFG, deployed_controller, forecast, inputs  # noqa: E402
+from ndp_nmpc_qd_tpu_torch.models.downwash_mlp import load_npz  # noqa: E402
+
+B = 65536
+TICKS = 10
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA card")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mlp = load_npz(ASSET, device=dev)
+    ctl = deployed_controller(dev)
+    x0, xr, ur, other = inputs(B, dev, seed=0)
+    state = ctl.reset(xr, ur)
+
+    def tick(state):
+        f = forecast(mlp, other, xr, x0, torch.bfloat16)
+        return ctl.update(state, x0, xr, ur, f)[1]
+
+    for _ in range(3):
+        state = tick(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TICKS):
+            state = tick(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / TICKS
+
+    rows = []  # kernels only: the aten rows repeat their kernels' time
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+            rows.append((ev.self_device_time_total / TICKS / 1e3, ev.count // TICKS, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(f"card: {smi}; B={B}, N={CFG.ocp.N_node}, {TICKS} ticks")
+    print(f"step wall {wall_ms:.3f} ms/tick (host clock, synchronized, profiler on); "
+          f"device busy {busy:.3f} ms/tick ({100 * busy / wall_ms:.1f}%)")
+    print(f"{'device ms/tick':>15} {'calls/tick':>10}  kernel")
+    for ms, calls, name in rows[:25]:
+        print(f"{ms:15.4f} {calls:10d}  {name[:100]}")
+
+
+if __name__ == "__main__":
+    main()
