@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's paths on one CUDA card and check them.
 
     python3 chip_smoke.py            # on a machine with a CUDA card
     python3 chip_smoke.py --small    # CPU rehearsal of the control flow
@@ -6,23 +6,33 @@
 Phases, one line each; any failure exits non-zero before the last line:
 1. device: the card's name and count, then the line
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives.
-2. build: nvcc of every kernel source, with ptxas' registers and spills.
-3. kernel vs plain: the fused control-step kernel against its plain
-   PyTorch version on the card, B=4096, 3 chained ticks (cold, then warm),
-   every tick checked, f32 and bf16 payloads, at the tolerances stated in
-   `check_pair` (duals and mu at their own scale, so the warm ticks' duals
-   near mu are held as well as the cold tick's).
+2. build: nvcc of every kernel source (one process each, all started
+   together), with ptxas' registers, stack and spills per kernel.
+3. kernel vs plain, B=4096, f32 and bf16 payloads, at the tolerances stated
+   in `check_pair` and `ndp_nmpc_qd_tpu_torch/testing.py`:
+   a. K1, the fused control step, 3 chained ticks (cold, then warm), every
+      tick checked (duals and mu at their own scale);
+   b. K3 (linearization), K2 (whole IPM, 3 chained solves, with and without
+      the folded axpy), K4 and K5 (one glue-fused IPM iteration), each on
+      the same inputs as its plain version; and the one-kernel step against
+      the two-kernel path (K3 + K2) over 3 chained ticks in f32.
 4. main path: bf16 downwash forecast + `reset` + `update` of the deployed
-   controller (warm start, 3 QP iterations, bf16 Jacobians) at B=65536:
-   health, mean step time over 30 queued ticks (CUDA events), solves/s, the
-   kernel's launch count, peak memory.
-5. closed loop: 150-tick hover recovery at B=65536 through an RK4 plant that
+   controller (warm start, 3 QP iterations, bf16 Jacobians, one K1 launch a
+   tick) at B=65536: health, mean step time over 30 queued ticks (CUDA
+   events), solves/s, the kernel's launch count, peak memory.
+5. two-kernel path: the same drive with `whole_step=False, whole_ipm=True`
+   (K3 + K2 a tick), then one tick of it and of the one-kernel step from
+   the same state, held against each other.
+6. per-iteration path: `whole_step=False, whole_ipm=False, lqr_start=False`
+   (K3, then K4 + K5 per IPM iteration).
+7. closed loop: 150-tick hover recovery at B=65536 through an RK4 plant that
    feels the same node-0 forecast force the controller was given.
-6. kernels: the kernel against its plain version once more, at B=65536 on
-   the main path's state with the deployed bf16 payload, then one JSON
-   line, each hand-written kernel with its launches on the main path, time,
-   bound, plain-version time and error against it.
-The last line is {"ok": true, "device": {...}}.
+8. kernels: each kernel against its plain version once more at B=65536 on
+   the state its path left (the deployed bf16 payload), then one JSON line,
+   each hand-written kernel with its launches on its path, time, bound,
+   plain-version time and error against it.
+Every path sets its kernels' launch counts to 0 just before it is driven
+and reads them just after. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -43,13 +54,18 @@ from ndp_nmpc_qd_tpu_torch.models.quadrotor import (
     body_rate_dynamics, hover_input, hover_state,
 )
 from ndp_nmpc_qd_tpu_torch.ops.integrators import make_discrete_dynamics
-from ndp_nmpc_qd_tpu_torch.ops.kernels import _build, step_whole
+from ndp_nmpc_qd_tpu_torch import testing
+from ndp_nmpc_qd_tpu_torch.ops.kernels import (
+    _build, ipm_whole, linearize, riccati_sparse, step_whole,
+)
 from ndp_nmpc_qd_tpu_torch.ops.layout import pack
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
-from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import whole_step_consts
-from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import cold_warm
+from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import (
+    SparseQp, ipm_consts, lin_consts, sparse_consts, whole_step_consts,
+)
+from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import IpmWarm, cold_warm, ipm_sparse
 from ndp_nmpc_qd_tpu_torch.solver.rti import (
-    first_control_and_health, make_batched_rti_controller,
+    RtiState, first_control_and_health, make_batched_rti_controller,
 )
 
 ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
@@ -140,17 +156,29 @@ def phase_device(small):
     return dict(platform="gpu", kind=name, count=torch.cuda.device_count())
 
 
+def ptxas_summary(log):
+    """Per kernel instantiation: registers, stack frame and spills, from
+    nvcc's `-Xptxas -v` output."""
+    out, name, frame = [], "?", "stack frame not reported"
+    for ln in log.splitlines():
+        m = re.search(r"entry function '_Z\d+(\w+?)I(f|13__nv_bfloat16)E", ln)
+        if m:
+            name = f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}>"
+        elif "bytes stack frame" in ln:
+            frame = ln.strip()
+        elif "ptxas info" in ln and "Used" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out.append(f"{name} {regs.group(1) if regs else '?'} registers, {frame}")
+    return " | ".join(out)
+
+
 def phase_build():
     t0 = time.perf_counter()
     _build.build()
     wall = time.perf_counter() - t0
     for name, info in _build.build_info.items():
-        ptxas = [
-            ln.split(":", 1)[1].strip() for ln in info["log"].splitlines()
-            if "ptxas info" in ln and ("Used" in ln or "spill" in ln)
-        ]
         print(f"build: {name}.cu in {info['seconds']:.1f} s (wall {wall:.1f} s, "
-              f"cached={info['cached']}); ptxas: {' | '.join(ptxas)}")
+              f"cached={info['cached']}); ptxas: {ptxas_summary(info['log'])}")
 
 
 def scaled_err(a, b):
@@ -246,17 +274,98 @@ def phase_compare(B, dev, seed, mlp):
     return res
 
 
-def deployed_controller(dev):
-    return make_batched_rti_controller(
-        CFG.ocp, CFG.vehicle, with_disturbance=True, qp_iters=3, warm_start=True,
-        jac_bf16=True, whole_ipm=True, packed_state=True, whole_step=True, device=dev,
-    )
+# Each path's kernels and launches per tick (qp_iters=3).
+KERNELS = {
+    "K1": step_whole.control_step_whole,
+    "K3": linearize.linearize_stage_data,
+    "K2": ipm_whole.riccati_ipm_whole,
+    "K4": riccati_sparse.riccati_backward_glue,
+    "K5": riccati_sparse.riccati_forward_glue,
+}
+PATHS = {
+    "one-kernel": (dict(whole_step=True), {"K1": 1}),
+    "two-kernel": (dict(whole_step=False, whole_ipm=True, lqr_start=False), {"K3": 1, "K2": 1}),
+    "per-iteration": (dict(whole_step=False, whole_ipm=False, lqr_start=False),
+                      {"K3": 1, "K4": 3, "K5": 3}),
+}
 
 
-def phase_main(B, dev, seed, mlp, warm_ticks=3, timed_ticks=30):
-    ctl = deployed_controller(dev)
+def controller(dev, jac_bf16=True, **flags):
+    """The deployed flags (bench.py): warm start, 3 QP iterations, bf16
+    Jacobians, packed state; `flags` pick the path."""
+    kw = dict(with_disturbance=True, qp_iters=3, warm_start=True, jac_bf16=jac_bf16,
+              whole_ipm=True, packed_state=True, whole_step=True, device=dev)
+    kw.update(flags)
+    return make_batched_rti_controller(CFG.ocp, CFG.vehicle, **kw)
+
+
+def clone_state(st):
+    return RtiState(st.x_bar.clone(), st.u_bar.clone(), tuple(t.clone() for t in st.ipm))
+
+
+def check_agreement(tag, jac_bf16, k, eq_k, p, eq_p, B):
+    """Two paths from the same state: with the bf16 payload at `check_pair`'s
+    tolerances; in f32 at `tests/test_packed_state.py:46-78`'s: u0 atol
+    1e-5, iterates atol 2e-5, duals and mu rtol 1e-4 at their own scale,
+    eq_res rtol 1e-4 / atol 1e-6, `ok` identical."""
+    e = pair_errors(k, eq_k, p, eq_p)
+    if jac_bf16:
+        check_pair(tag, True, e, B)
+        return e
+    eq_excess = float(((eq_k - eq_p).abs() - 1e-4 * eq_p.abs()).max())
+    bad = [what for what, good in (
+        ("ok flags differ", e["ok_mismatch"] == 0), ("unhealthy scenarios", e["n_ok"] == B),
+        ("u0", e["u0"] <= 1e-5), ("iterates", max(e["xb"], e["ub"]) <= 2e-5),
+        ("duals", e["duals_scaled"] <= 1e-4), ("eq_res", eq_excess <= 1e-6),
+    ) if not good]
+    check(not bad, f"{tag}: {', '.join(bad)} out of tolerance: " + describe_pair(e))
+    return e
+
+
+def phase_compare_two_kernel(B, dev, seed, mlp):
+    """K3, K2 (3 chained solves, with and without the fold), K4 and K5
+    against their plain versions on the same inputs, f32 and bf16 payloads;
+    then the one-kernel step against the two-kernel path in f32."""
+    ic = ipm_consts(CFG.ocp, num_iters=3)
+    ws = ipm_whole.make_workspace(B, N, dev)
+    for jac_bf16 in (False, True):
+        tag = "bf16" if jac_bf16 else "f32"
+        lc = lin_consts(CFG.ocp, CFG.vehicle, True, jac_bf16=jac_bf16)
+        ins = testing.kernel_inputs(B, N, dev, seed)
+        errs, bad, qp = testing.check_linearize(ins, lc)
+        lines = {"K3": (errs, bad)}
+        for name, xu in (("K2, 3 chained solves", None), ("K2 with the axpy fold", ins[:2])):
+            lines[name] = testing.check_ipm_whole(
+                qp, cold_warm(N, B, torch.float32, dev), ic, xu=xu, workspace=ws)
+        lines["K4 + K5"] = testing.check_iter(testing.iter_args(qp, ic), ic)
+        for name, (errs, bad) in lines.items():
+            print(f"kernel vs plain ({name}, {tag} payload, B={B}): {testing.describe(errs)}")
+            check(not bad, f"{name} vs plain ({tag} payload, B={B}): "
+                  f"{', '.join(bad)} out of tolerance")
+
     x0, xr, ur, other = inputs(B, dev, seed)
-    step_whole.control_step_whole.launches = 0
+    f = forecast(mlp, other, xr, x0, None)
+    one = controller(dev, jac_bf16=False, **PATHS["one-kernel"][0])
+    two = controller(dev, jac_bf16=False, **PATHS["two-kernel"][0])
+    s1, s2 = one.reset(xr, ur), two.reset(xr, ur)
+    worst = {}
+    for tick in range(3):
+        _, s1, i1 = one.update(s1, x0, xr, ur, f)
+        _, s2, i2 = two.update(s2, x0, xr, ur, f)
+        e = check_agreement(f"two-kernel vs one-kernel (f32, B={B}, tick {tick})", False,
+                            [s2.x_bar, s2.u_bar, *s2.ipm], i2.eq_res,
+                            [s1.x_bar, s1.u_bar, *s1.ipm], i1.eq_res, B)
+        worst = {n: max(worst.get(n, v), v) for n, v in e.items() if isinstance(v, float)}
+    print(f"two-kernel (K3 + K2) vs one-kernel (K1) path (f32, B={B}, 3 chained ticks, worst): "
+          + ", ".join(f"{n} {worst[n]:.3g}" for n in ("u0", "xb", "ub", "duals_scaled", "eq")))
+
+
+def phase_path(B, dev, seed, mlp, path="one-kernel", warm_ticks=3, timed_ticks=30):
+    """Drive one controller path: every kernel's count set to 0 just before,
+    read just after; health, step time, launches per tick."""
+    flags, per_tick = PATHS[path]
+    ctl = controller(dev, **flags)
+    x0, xr, ur, other = inputs(B, dev, seed)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     state = ctl.reset(xr, ur)
@@ -266,6 +375,8 @@ def phase_main(B, dev, seed, mlp, warm_ticks=3, timed_ticks=30):
         f = forecast(mlp, other, xr, x0, torch.bfloat16)
         box["u0"], box["state"], box["info"] = ctl.update(box.get("state", state), x0, xr, ur, f)
 
+    for fn in KERNELS.values():
+        fn.launches = 0
     for _ in range(warm_ticks):
         tick()
     if dev.type == "cuda":
@@ -276,27 +387,44 @@ def phase_main(B, dev, seed, mlp, warm_ticks=3, timed_ticks=30):
         for _ in range(timed_ticks):
             tick()
         step_ms = (time.perf_counter() - t0) * 1e3 / timed_ticks
-    launches = step_whole.control_step_whole.launches
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
     ticks = warm_ticks + timed_ticks
     info, u0 = box["info"], box["u0"]
     n_ok = int(info.ok.sum())
     finite = bool(torch.isfinite(u0).all())
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
     where = "CUDA events" if dev.type == "cuda" else "host clock, CPU"
-    print(f"main path (B={B}, N={N}, qp_iters=3, bf16 Jacobians, warm start): ok {n_ok}/{B}; "
+    counted = ", ".join(f"{k} {launches[k]}" for k in KERNELS if launches[k] or k in per_tick)
+    print(f"{path} path (B={B}, N={N}, qp_iters=3, bf16 Jacobians, warm start): ok {n_ok}/{B}; "
           f"step {step_ms:.3f} ms mean over {timed_ticks} queued ticks ({where}); "
-          f"{B / step_ms * 1e3:.0f} solves/s; step_whole launches {launches} for {ticks} ticks; "
+          f"{B / step_ms * 1e3:.0f} solves/s; launches {counted} for {ticks} ticks; "
           f"max eq_res {float(info.eq_res.max()):.3g}; peak memory {peak:.2f} GiB")
-    check(finite and u0.shape == (B, 4), "u0 not finite or of the wrong shape")
-    check(n_ok == B, f"main path: {B - n_ok} unhealthy scenarios")
+    check(finite and u0.shape == (B, 4), f"{path}: u0 not finite or of the wrong shape")
+    check(n_ok == B, f"{path} path: {B - n_ok} unhealthy scenarios")
     if dev.type == "cuda":
-        check(launches == ticks, f"step_whole launched {launches} times for {ticks} ticks")
-    return dict(ctl=ctl, state=box["state"], x0=x0, xr=xr, ur=ur, other=other,
+        want = {k: per_tick.get(k, 0) * ticks for k in KERNELS}
+        check(launches == want, f"{path} path launched {launches}, want {want}")
+    return dict(ctl=ctl, state=box["state"], x0=x0, xr=xr, ur=ur, other=other, path=path,
                 launches=launches, ticks=ticks, step_ms=step_ms)
 
 
+def phase_agree(two, dev, mlp):
+    """One tick of the one-kernel step and one of the two-kernel path from
+    the two-kernel path's state, on the same inputs (bf16 payload)."""
+    B = two["x0"].shape[0]
+    args = (two["x0"], two["xr"], two["ur"],
+            forecast(mlp, two["other"], two["xr"], two["x0"], torch.bfloat16))
+    _, s1, i1 = controller(dev).update(clone_state(two["state"]), *args)
+    _, s2, i2 = two["ctl"].update(clone_state(two["state"]), *args)
+    e = check_agreement(f"two-kernel vs one-kernel (bf16, B={B})", True,
+                        [s2.x_bar, s2.u_bar, *s2.ipm], i2.eq_res,
+                        [s1.x_bar, s1.u_bar, *s1.ipm], i1.eq_res, B)
+    print(f"two-kernel vs one-kernel path (bf16 payload, B={B}, one tick from the two-kernel "
+          f"path's state): " + describe_pair(e))
+
+
 def phase_closed_loop(B, dev, seed, mlp, ticks=150):
-    ctl = deployed_controller(dev)
+    ctl = controller(dev)
     x, xr, ur, other = inputs(B, dev, seed + 1)
     plant = make_discrete_dynamics(
         lambda xx, uu, fd: body_rate_dynamics(
@@ -322,10 +450,35 @@ def phase_closed_loop(B, dev, seed, mlp, ticks=150):
         check(launches == ticks, f"closed loop launched {launches} times for {ticks} ticks")
 
 
+def bound_of(B, ins, outs, plain, args, kwargs):
+    """The least time the card could take for a kernel's work: the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its operations (the arithmetic the plain version does
+    on a 64-lane slice of these inputs, scaled to B) over the f32 rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs) if t is not None)
+    cpu = lambda t: t[..., :64].to("cpu") if isinstance(t, torch.Tensor) else t
+    counter = OpCount()
+    with counter, torch.no_grad():
+        plain(*(cpu(t) for t in args), **kwargs)
+    flops = counter.ops / 64 * B
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, flops=flops)
+
+
+def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound, B, **extra):
+    return dict(name=name, route="cuda", source=f"ndp_nmpc_qd_tpu_torch/csrc/{source}",
+                replaces=f"ndp_nmpc_qd_tpu/ops/pallas/{replaces}", launches=launches,
+                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, **bound, library_ms=None,
+                B=B, **extra)
+
+
 def phase_kernels(main, compare, mlp):
     """Hold K1 against its plain version at the main path's size, on the
     main path's state and inputs with the deployed bf16 payload, then time
-    both."""
+    both. Returns K1's entry of the kernels line."""
     dev = main["x0"].device
     B = main["x0"].shape[0]
     consts = whole_step_consts(CFG.ocp, CFG.vehicle, True, jac_bf16=True, num_iters=3)
@@ -335,55 +488,119 @@ def phase_kernels(main, compare, mlp):
     k_state = [st.x_bar.clone(), st.u_bar.clone(), *[t.clone() for t in st.ipm]]
     p_state = [t.clone() for t in k_state]
     ws = step_whole.make_workspace(B, N, True, dev)
+    plain = step_whole.control_step_whole_plain
+    plain_args = (*p_state[:2], *ins, *p_state[2:])
 
     def run_kernel():
         return step_whole.control_step_whole(k_state[0], k_state[1], *ins, *k_state[2:],
                                              workspace=ws, **consts)
 
-    def run_plain():
-        return step_whole.control_step_whole_plain(p_state[0], p_state[1], *ins,
-                                                   *p_state[2:], **consts)
-
-    saved = step_whole.control_step_whole.launches
     eq_k = run_kernel()
-    outs = run_plain()
+    outs = plain(*plain_args, **consts)
     for dst, src in zip(p_state, outs[:7]):
         dst.copy_(src)
     e = pair_errors(k_state, eq_k, p_state, outs[7])
-    print(f"kernel vs plain (bf16 payload, B={B}, one tick from the main path's state): "
-          + describe_pair(e))
+    print(f"kernel vs plain (K1, bf16 payload, B={B}, one tick from the one-kernel path's "
+          f"state): " + describe_pair(e))
     check_pair(f"bf16 payload, B={B}", True, e, B)
     ms = cuda_ms(run_kernel, 10)
-    step_whole.control_step_whole.launches = saved  # checks and timing are not the main path's
-    plain_ms = cuda_ms(run_plain, 1)
-
-    # bound: each input read once and each output written once, and the
-    # arithmetic the plain version does on a slice of these inputs
-    read = sum(t.numel() for t in (*k_state, *ins)) * 4
-    written = (k_state[0].numel() + k_state[1].numel()
-               + sum(t.numel() for t in k_state[2:]) + B) * 4
-    cpu = lambda t: t[..., :64].to("cpu")
-    counter = OpCount()
-    with counter, torch.no_grad():
-        step_whole.control_step_whole_plain(*(cpu(t) for t in k_state[:2]),
-                                            *(cpu(t) for t in ins),
-                                            *(cpu(t) for t in k_state[2:]), **consts)
-    flops = counter.ops / 64 * B
-    bytes_ms = (read + written) / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    entry = dict(
-        name="control_step_whole", route="cuda",
-        source="ndp_nmpc_qd_tpu_torch/csrc/step_whole.cu",
-        replaces="ndp_nmpc_qd_tpu/ops/pallas/step_whole.py:184",
-        launches=main["launches"], launches_per_tick=main["launches"] / main["ticks"],
+    plain_ms = cuda_ms(lambda: plain(*plain_args, **consts), 1)
+    bound = bound_of(B, (*k_state, *ins), (*k_state, eq_k), plain, plain_args, consts)
+    return entry(
+        "control_step_whole", "step_whole.cu", "step_whole.py:184", main["launches"]["K1"],
         # bf16 payload at B=65536, every output; then the f32 payload at B=4096
-        max_abs_err=max(e[n] for n in STATE), u0_abs_err=e["u0"],
+        max(e[n] for n in STATE), ms, plain_ms, bound, B,
+        launches_per_tick=main["launches"]["K1"] / main["ticks"], u0_abs_err=e["u0"],
         max_abs_err_f32_payload=max(compare["f32"][n] for n in STATE),
-        ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None, B=B, bytes=read + written, flops=flops,
     )
-    print(json.dumps({"kernels": [entry]}))
+
+
+def phase_kernels_two_kernel(two, per, mlp):
+    """K3, K2, K4 and K5 against their plain versions at B=65536 on the
+    state their path left (K3 and K2: the two-kernel path's; K3, K4 and K5:
+    the per-iteration path's), bf16 payload, then timed and bounded; and the
+    per-iteration IPM's time beside its kernels'. Returns their entries."""
+    dev = two["x0"].device
+    B = two["x0"].shape[0]
+    lc = lin_consts(CFG.ocp, CFG.vehicle, True, jac_bf16=True)
+    ic = ipm_consts(CFG.ocp, num_iters=3)
+
+    def checked(name, errs, bad):
+        print(f"kernel vs plain ({name}, bf16 payload, B={B}): {testing.describe(errs)}")
+        check(not bad, f"{name} vs plain (bf16 payload, B={B}): {', '.join(bad)} out of tolerance")
+        return errs["max_abs"]
+
+    def path_inputs(res):
+        f = forecast(mlp, res["other"], res["xr"], res["x0"], torch.bfloat16)
+        st = res["state"]
+        return st, (st.x_bar, st.u_bar, pack(res["xr"]), pack(res["ur"]), pack(f),
+                    pack(res["x0"][:, None]))
+
+    st2, ins2 = path_inputs(two)
+    errs, bad, qp2 = testing.check_linearize(ins2, lc)
+    err3 = checked("K3, the two-kernel path's state", errs, bad)
+    st3, ins3 = path_inputs(per)
+    errs, bad, qp3 = testing.check_linearize(ins3, lc)
+    err3 = max(err3, checked("K3, the per-iteration path's state", errs, bad))
+    plain3 = linearize.linearize_stage_data_plain
+    k3 = entry(
+        "linearize_stage_data", "linearize.cu", "linearize.py:297", two["launches"]["K3"],
+        err3, cuda_ms(lambda: KERNELS["K3"](*ins2, **lc), 10),
+        cuda_ms(lambda: plain3(*ins2, **lc), 1), bound_of(B, ins2, qp2, plain3, ins2, lc), B,
+        launches_per_path={p: r["launches"]["K3"] for p, r in (("two-kernel", two),
+                                                              ("per-iteration", per))},
+    )
+
+    # K2 with the axpy folded, as the two-kernel path runs it
+    ws = ipm_whole.make_workspace(B, N, dev)
+    xu = (st2.x_bar, st2.u_bar)
+    errs, bad = testing.check_ipm_whole(qp2, st2.ipm, ic, xu=xu, calls=1, workspace=ws)
+    err2 = checked("K2 with the axpy fold, one solve from the two-kernel path's state", errs, bad)
+    kd = [t.clone() for t in st2.ipm]
+    kx = [t.clone() for t in xu]
+    plain2 = ipm_whole.riccati_ipm_whole_plain
+    args2 = (*qp2[:11], *st2.ipm, qp2[11], *xu)
+    eq = torch.empty(B, device=dev)
+    k2 = entry(
+        "riccati_ipm_whole", "ipm_whole.cu", "ipm_whole.py:459", two["launches"]["K2"], err2,
+        cuda_ms(lambda: KERNELS["K2"](*qp2[:11], *kd, qp2[11], *kx, workspace=ws, **ic), 10),
+        cuda_ms(lambda: plain2(*args2, **ic), 1),
+        bound_of(B, args2, (*xu, *st2.ipm, eq), plain2, args2, ic), B,
+    )
+
+    # K4 and K5 at the per-iteration path's start, its carried duals mixed in
+    warm = IpmWarm(*st3.ipm)
+    args = testing.iter_args(qp3, ic, warm=warm)
+    errs, bad = testing.check_iter(args, ic)
+    checked("K4 + K5, the per-iteration path's state", errs, bad)
+    kw4 = {k: ic[k] for k in ("h", "diag6_stage", "diag6_term", "rdiag_stage")}
+    kw5 = dict(h=ic["h"], tau=ic["tau"])
+    bwd = args[:22]
+    plain4 = riccati_sparse.riccati_backward_glue_plain
+    plain5 = riccati_sparse.riccati_forward_glue_plain
+    K, kf, rh, res2 = plain4(*bwd, **kw4)
+    fwd = (args[3], args[4], args[5], rh, K, kf, *args[7:22], args[22])
+    ms4 = cuda_ms(lambda: KERNELS["K4"](*bwd, **kw4), 10)
+    ms5 = cuda_ms(lambda: KERNELS["K5"](*fwd, **kw5), 10)
+    k4 = entry(
+        "riccati_backward_glue", "riccati_iter.cu", "riccati_sparse.py:728",
+        per["launches"]["K4"], errs["max_abs_K4"], ms4, cuda_ms(lambda: plain4(*bwd, **kw4), 1),
+        bound_of(B, bwd, (K, kf, rh, res2), plain4, bwd, kw4), B,
+    )
+    k5 = entry(
+        "riccati_forward_glue", "riccati_iter.cu", "riccati_sparse.py:787",
+        per["launches"]["K5"], errs["max_abs_K5"], ms5, cuda_ms(lambda: plain5(*fwd, **kw5), 1),
+        bound_of(B, fwd, plain5(*fwd, **kw5), plain5, fwd, kw5), B,
+    )
+
+    # the per-iteration IPM: its kernels and the torch work around them
+    p3 = SparseQp(*qp3[:11])
+    ipm_ms = cuda_ms(lambda: ipm_sparse(p3, sparse_consts(CFG.ocp), qp3[11], num_iters=3,
+                                        warm=warm, lqr_start=False), 10)
+    print(f"per-iteration IPM (3 iterations, B={B}): {ipm_ms:.3f} ms a solve (CUDA events, "
+          f"10 queued); K4 + K5 3 x ({ms4:.3f} + {ms5:.3f}) = {3 * (ms4 + ms5):.3f} ms; the "
+          f"start and the torch work between the launches {ipm_ms - 3 * (ms4 + ms5):.3f} ms")
+    return [k3, k2, k4, k5]
 
 
 def main():
@@ -402,15 +619,24 @@ def main():
     mlp = load_npz(ASSET, device=dev)
     try:
         if args.small:
-            main_ = phase_main(8, dev, args.seed, mlp, warm_ticks=1, timed_ticks=2)
+            phase_path(8, dev, args.seed, mlp, "one-kernel", 1, 2)
+            two = phase_path(8, dev, args.seed, mlp, "two-kernel", 1, 2)
+            phase_agree(two, dev, mlp)
+            phase_path(8, dev, args.seed, mlp, "per-iteration", 1, 2)
             phase_closed_loop(8, dev, args.seed, mlp)
             print("rehearsal done: no kernel ran, so no result is printed")
             sys.exit(2)
         phase_build()
         compare = phase_compare(4096, dev, args.seed, mlp)
-        main_ = phase_main(65536, dev, args.seed, mlp)
+        phase_compare_two_kernel(4096, dev, args.seed, mlp)
+        main_ = phase_path(65536, dev, args.seed, mlp)
+        two = phase_path(65536, dev, args.seed, mlp, "two-kernel")
+        phase_agree(two, dev, mlp)
+        per = phase_path(65536, dev, args.seed, mlp, "per-iteration")
         phase_closed_loop(65536, dev, args.seed, mlp)
-        phase_kernels(main_, compare, mlp)
+        kernels = [phase_kernels(main_, compare, mlp)]
+        kernels += phase_kernels_two_kernel(two, per, mlp)
+        print(json.dumps({"kernels": kernels}))
     except Fail as e:
         print(f"FAILED: {e}", file=sys.stderr)
         sys.exit(1)

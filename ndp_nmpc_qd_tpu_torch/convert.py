@@ -35,3 +35,12 @@ def rti_state_from_numpy(x_bar, u_bar, ipm, B: int, *, device=None) -> RtiState:
         mu = np.ascontiguousarray(np.asarray(mu).reshape(-1)[:B])
         ipm_t = tuple(lanes(d) for d in duals) + (torch.tensor(mu, device=dev),)
     return RtiState(lanes(x_bar), lanes(u_bar), ipm_t)
+
+
+def rti_batch_state_from_numpy(x_bar, u_bar, ipm, *, device=None) -> RtiState:
+    """A JAX batch-first `RtiState` (`packed_state=False`: x_bar (B, N+1,
+    10), u_bar (B, N, 4), ipm (B, N, 4) x 2, (B, N+1, 3) x 2, mu (B,)) as
+    the port's batch-first state."""
+    dev = resolve_device(device)
+    t = lambda a: torch.tensor(np.ascontiguousarray(np.asarray(a)), device=dev)
+    return RtiState(t(x_bar), t(u_bar), None if ipm is None else tuple(t(a) for a in ipm))

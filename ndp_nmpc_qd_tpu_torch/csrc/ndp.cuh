@@ -1,8 +1,13 @@
-// Device functions of the fused NDP-NMPC control step, one scenario per
-// thread. Each function is named after its JAX counterpart:
+// Device functions shared by the port's CUDA kernels (step_whole.cu,
+// linearize.cu, ipm_whole.cu, riccati_iter.cu), one scenario per thread.
+// Each function is named after its JAX counterpart:
 //   lin_stage_terms / lin_terminal_terms  ops/pallas/linearize.py:122,183
+//   linearize_scenario                    ops/pallas/linearize.py:_lin_kernel
 //   glue_pair, terminal_init_core, riccati_stage_core, dyn_step,
 //   bound_steps                           ops/pallas/riccati_sparse.py:74-437
+//   backward_sweep / forward_pass         ops/pallas/riccati_sparse.py:
+//                                         _backward_kernel_glue,
+//                                         _forward_kernel_glue
 //   chol4, chol4_solve                    ops/pallas/riccati.py:101,122
 //   ipm_whole                             ops/pallas/ipm_whole.py:82
 // and follows the same operation order as the plain PyTorch versions in
@@ -23,9 +28,10 @@ namespace ndp {
 constexpr int NX = 10;
 constexpr int NU = 4;
 
-// Constants of `solver/ocp_sparse.make_whole_step`, products precomputed on
-// the host in double so they round to float as the plain version's do.
-// Mirrored field for field by `_StepConsts` in ops/kernels/step_whole.py.
+// Constants of the linearization and the IPM, products precomputed on the
+// host in double so they round to float as the plain version's do; a kernel
+// leaves the fields it does not read at 0. Mirrored field for field by
+// `StepConsts` in ops/kernels/_cuda.py.
 struct StepConsts {
   float h;            // shooting interval
   float rk_half;      // 0.5 * h / substeps
@@ -47,24 +53,6 @@ struct StepConsts {
   int with_dist;
 };
 
-// Tensors of one launch. State tensors update in place.
-struct StepPtrs {
-  float* xb;         // (N+1, 10, B) iterates
-  float* ub;         // (N, 4, B)
-  const float* xr;   // (N+1, 10, B) reference
-  const float* ur;   // (N, 4, B)
-  const float* fd;   // (N+1, 3, B) downwash forecast, null without it
-  const float* x0;   // (1, 10, B) measured state
-  float* lu_lo;      // (N, 4, B) carried duals
-  float* lu_up;
-  float* lx_lo;      // (N+1, 3, B)
-  float* lx_up;
-  float* mu;         // (B,) barrier weight, < 0 = cold
-  float* eq;         // (B,) out: equality residual
-  float* ws;         // ws_f32_planes(N) planes of B floats
-  void* wj;          // ws_jac_planes(N) planes of B jac-dtype values
-};
-
 template <typename T>
 struct View {
   T* p;
@@ -74,6 +62,12 @@ struct View {
     return p[((long long)k * d + i) * B];
   }
 };
+
+// View of scenario b of a (stage, d, B) tensor; a null tensor stays null.
+template <typename T>
+__device__ __forceinline__ View<T> at(T* p, int d, long long B, long long b) {
+  return View<T>{p ? p + b : nullptr, d, B};
+}
 
 __device__ __forceinline__ float ldf(float v) { return v; }
 __device__ __forceinline__ float ldf(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -91,17 +85,71 @@ __device__ __forceinline__ __nv_bfloat16 stf<__nv_bfloat16>(float v) {
 __device__ __forceinline__ float nmin(float a, float b) { return (a != a || a < b) ? a : b; }
 __device__ __forceinline__ float nmax(float a, float b) { return (a != a || a > b) ? a : b; }
 
-// ---- workspace: the stage payload and the IPM scratch, per scenario ----
+// ---- the stage QP payload (solver/ocp_sparse.py SparseQp + dx0) ----
 
-__host__ __device__ inline int ws_f32_planes(int N) {
-  return (N + 1) * NX      // gx
-         + N * NU          // gu
-         + N * 6           // bc
-         + N * NX          // r
-         + 2 * N * NU      // lub, uub
-         + 2 * (N + 1) * 3 // lxb, uxb
-         + NX              // dx0
-         + N * NU * NX     // K
+// Pointers of a payload in (stage, element, B) tensors; hq, a and b hold the
+// jac dtype (float or bf16), the rest float. Shared with Python (ctypes).
+struct QpPtrs {
+  void* hq;    // (N+1, 16)
+  float* gx;   // (N+1, 10)
+  float* gu;   // (N, 4)
+  void* a;     // (N, 40)
+  void* b;     // (N, 30)
+  float* bc;   // (N, 6)
+  float* r;    // (N, 10)
+  float* lub;  // (N, 4)
+  float* uub;
+  float* lxb;  // (N+1, 3)
+  float* uxb;
+  float* dx0;  // (1, 10)
+};
+
+// One scenario's view of a payload.
+template <typename JT>
+struct Payload {
+  View<JT> hq, a, b;  // curvature, stored in the jac dtype
+  View<float> gx, gu, bc, r, lub, uub, lxb, uxb, dx0;
+};
+
+template <typename JT>
+__device__ inline Payload<JT> payload_at(const QpPtrs& p, long long B, long long b) {
+  Payload<JT> q;
+  q.hq = at(static_cast<JT*>(p.hq), 16, B, b);
+  q.a = at(static_cast<JT*>(p.a), 40, B, b);
+  q.b = at(static_cast<JT*>(p.b), 30, B, b);
+  q.gx = at(p.gx, NX, B, b);
+  q.gu = at(p.gu, NU, B, b);
+  q.bc = at(p.bc, 6, B, b);
+  q.r = at(p.r, NX, B, b);
+  q.lub = at(p.lub, NU, B, b);
+  q.uub = at(p.uub, NU, B, b);
+  q.lxb = at(p.lxb, 3, B, b);
+  q.uxb = at(p.uxb, 3, B, b);
+  q.dx0 = at(p.dx0, NX, B, b);
+  return q;
+}
+
+// ---- workspaces: planes of B values, carved per scenario ----
+
+template <typename T>
+struct Carver {
+  T* base;
+  long long B, off;  // off starts at the scenario index b
+  __device__ View<T> take(int s, int d) {
+    View<T> v{base + off, d, B};
+    off += (long long)s * d * B;
+    return v;
+  }
+};
+
+// The IPM's per-scenario arrays (the TPU kernel's VMEM scratch).
+struct IpmScratch {
+  View<float> K, kf, rh, sul, suu, sxl, sxu, dx, du;
+  View<float> zx, zu;  // primal deltas; the iterates change only in the fold
+};
+
+__host__ __device__ inline int ipm_ws_planes(int N) {
+  return N * NU * NX       // K
          + N * NU          // kf
          + N * NX          // rh
          + 2 * N * NU      // sul, suu
@@ -112,68 +160,20 @@ __host__ __device__ inline int ws_f32_planes(int N) {
          + N * NU;         // zu
 }
 
-__host__ __device__ inline int ws_jac_planes(int N) {
-  return (N + 1) * 16 + N * 40 + N * 30;  // hq, a, b
-}
-
-// The QP payload of one scenario (the HBM tensors of the two-kernel path).
-template <typename JT>
-struct Payload {
-  View<JT> hq, a, b;  // curvature, stored in the jac dtype
-  View<float> gx, gu, bc, r, lub, uub, lxb, uxb, dx0;
-};
-
-struct IpmScratch {
-  View<float> K, kf, rh, sul, suu, sxl, sxu, dx, du;
-};
-
-template <typename JT>
-struct Workspace {
-  Payload<JT> q;
+__device__ inline IpmScratch carve_ipm(Carver<float>& cv, int N) {
   IpmScratch s;
-  View<float> zx, zu;  // primal deltas; the iterates change only in the fold
-};
-
-template <typename JT>
-__device__ inline Workspace<JT> carve_workspace(float* ws, JT* wj, long long B, int N,
-                                                long long b) {
-  Workspace<JT> w;
-  long long off = b;
-  auto take = [&](int s, int d) {
-    View<float> v{ws + off, d, B};
-    off += (long long)s * d * B;
-    return v;
-  };
-  w.q.gx = take(N + 1, NX);
-  w.q.gu = take(N, NU);
-  w.q.bc = take(N, 6);
-  w.q.r = take(N, NX);
-  w.q.lub = take(N, NU);
-  w.q.uub = take(N, NU);
-  w.q.lxb = take(N + 1, 3);
-  w.q.uxb = take(N + 1, 3);
-  w.q.dx0 = take(1, NX);
-  w.s.K = take(N, NU * NX);
-  w.s.kf = take(N, NU);
-  w.s.rh = take(N, NX);
-  w.s.sul = take(N, NU);
-  w.s.suu = take(N, NU);
-  w.s.sxl = take(N + 1, 3);
-  w.s.sxu = take(N + 1, 3);
-  w.s.dx = take(N + 1, NX);
-  w.s.du = take(N, NU);
-  w.zx = take(N + 1, NX);
-  w.zu = take(N, NU);
-  long long joff = b;
-  auto takej = [&](int s, int d) {
-    View<JT> v{wj + joff, d, B};
-    joff += (long long)s * d * B;
-    return v;
-  };
-  w.q.hq = takej(N + 1, 16);
-  w.q.a = takej(N, 40);
-  w.q.b = takej(N, 30);
-  return w;
+  s.K = cv.take(N, NU * NX);
+  s.kf = cv.take(N, NU);
+  s.rh = cv.take(N, NX);
+  s.sul = cv.take(N, NU);
+  s.suu = cv.take(N, NU);
+  s.sxl = cv.take(N + 1, 3);
+  s.sxu = cv.take(N + 1, 3);
+  s.dx = cv.take(N + 1, NX);
+  s.du = cv.take(N, NU);
+  s.zx = cv.take(N + 1, NX);
+  s.zu = cv.take(N, NU);
+  return s;
 }
 
 // ---- linearization (ops/pallas/linearize.py) ----
@@ -333,6 +333,67 @@ __device__ inline void lin_terminal_terms(const float* x1, const float* xrT, con
   hq_gxq_tiles(xrT + 6, qe, c.q_diag + 7, hqT, gxq);
   for (int i = 0; i < 6; ++i) gxT[i] = c.q_diag[i] * (x1[i] - xrT[i]);
   for (int i = 0; i < 4; ++i) gxT[6 + i] = gxq[i];
+}
+
+// One scenario's whole payload at the iterates (xb, ub): every stage's
+// terms, the terminal terms, the bound residuals (u box every stage, v box on
+// interior nodes, +-big on nodes 0 and N) and dx0 = x0 - xb[0]. fd.p null:
+// no disturbance input.
+template <typename JT>
+__device__ inline void linearize_scenario(View<const float> xb, View<const float> ub,
+                                          View<const float> xr, View<const float> ur,
+                                          View<const float> fdv, View<const float> x0,
+                                          const Payload<JT>& w, const StepConsts& c) {
+  const int N = c.n_stages;
+  const bool with_dist = fdv.p != nullptr;
+  for (int k = 0; k < N; ++k) {
+    float x[NX], x1[NX], u[NU], xrk[NX], urk[NU], fd[3];
+    for (int i = 0; i < NX; ++i) {
+      x[i] = xb(k, i);
+      x1[i] = xb(k + 1, i);
+      xrk[i] = xr(k, i);
+    }
+    for (int l = 0; l < NU; ++l) {
+      u[l] = ub(k, l);
+      urk[l] = ur(k, l);
+    }
+    if (with_dist)
+      for (int t = 0; t < 3; ++t) fd[t] = fdv(k, t);
+    float hq[16], gx[NX], gu[NU], a40[40], b30[30], bc6[6], r[NX];
+    lin_stage_terms(x, x1, u, xrk, urk, with_dist ? fd : nullptr, c, hq, gx, gu, a40, b30, bc6, r);
+    for (int j = 0; j < 16; ++j) w.hq(k, j) = stf<JT>(hq[j]);
+    for (int i = 0; i < NX; ++i) {
+      w.gx(k, i) = gx[i];
+      w.r(k, i) = r[i];
+    }
+    for (int l = 0; l < NU; ++l) w.gu(k, l) = gu[l];
+    for (int j = 0; j < 40; ++j) w.a(k, j) = stf<JT>(a40[j]);
+    for (int j = 0; j < 30; ++j) w.b(k, j) = stf<JT>(b30[j]);
+    for (int j = 0; j < 6; ++j) w.bc(k, j) = bc6[j];
+    for (int l = 0; l < NU; ++l) {
+      w.lub(k, l) = c.u_lo[l] - u[l];
+      w.uub(k, l) = c.u_hi[l] - u[l];
+    }
+    for (int t = 0; t < 3; ++t) {
+      w.lxb(k, t) = k == 0 ? -c.big : c.v_lo[t] - x[3 + t];
+      w.uxb(k, t) = k == 0 ? c.big : c.v_hi[t] - x[3 + t];
+    }
+  }
+  float x1T[NX], xrT[NX], hqT[16], gxT[NX];
+  for (int i = 0; i < NX; ++i) {
+    x1T[i] = xb(N, i);
+    xrT[i] = xr(N, i);
+  }
+  lin_terminal_terms(x1T, xrT, c, hqT, gxT);
+  for (int j = 0; j < 16; ++j) w.hq(N, j) = stf<JT>(hqT[j]);
+  for (int i = 0; i < NX; ++i) {
+    w.gx(N, i) = gxT[i];
+    w.dx0(0, i) = x0(0, i) - xb(0, i);
+  }
+  for (int t = 0; t < 3; ++t) {
+    w.lxb(N, t) = -c.big;
+    w.uxb(N, t) = c.big;
+  }
 }
 
 // ---- Riccati stage algebra (ops/pallas/riccati_sparse.py) ----
@@ -616,21 +677,11 @@ __device__ inline Steps bound_steps(float d, const Glue& g, float s_lo, float s_
   return st;
 }
 
-// ---- the whole IPM (ops/pallas/ipm_whole.py) ----
-
-__device__ inline void slack_init_pair(float lo, float hi, float v, float s_min, float& s_lo,
-                                       float& s_up) {
-  const float rng = hi - lo;
-  const float floor_ = nmin(s_min * nmin(rng, 1e3f), 0.5f * rng);
-  s_lo = nmax(fabsf(v - lo), floor_);
-  s_up = nmax(fabsf(hi - v), floor_);
-}
-
 // Pass-A accumulators: step ratios and the complementarity partials.
 struct StepAcc {
   float ap, ad, c1, c2, c3, c4;
-  __device__ void row(float v, float d, float lo, float hi, float s_lo, float s_up, float l_lo,
-                      float l_up, float mu, float tau) {
+  __device__ Steps row(float v, float d, float lo, float hi, float s_lo, float s_up, float l_lo,
+                       float l_up, float mu, float tau) {
     const Glue g = glue_pair(v, lo, hi, s_lo, s_up, l_lo, l_up, mu);
     const Steps st = bound_steps(d, g, s_lo, s_up, l_lo, l_up, tau);
     ap = nmin(ap, st.ap);
@@ -639,6 +690,7 @@ struct StepAcc {
     c2 = c2 + st.ds_lo * l_lo + st.ds_up * l_up;
     c3 = c3 + s_lo * st.dl_lo + s_up * st.dl_up;
     c4 = c4 + st.ds_lo * st.dl_lo + st.ds_up * st.dl_up;
+    return st;
   }
 };
 
@@ -656,16 +708,166 @@ __device__ inline void update_row(float v, float d, float lo, float hi, float& s
   l_up = nl_up;
 }
 
+// Slacks and duals of the box rows: u rows (N, 4), v rows (N+1, 3).
+struct Bounds {
+  View<float> sul, suu, sxl, sxu, lul, luu, lxl, lxu;
+};
+
+// Slack and dual directions of the box rows; not stored where sul.p is null.
+struct Dirs {
+  View<float> sul, suu, lul, luu, sxl, sxu, lxl, lxu;
+};
+
+// ---- one IPM iteration (ops/pallas/riccati_sparse.py) ----
+
+// Backward Riccati sweep at the iterate (zx, zu), stages N-1..0, with the
+// slack elimination of the box rows (`_backward_kernel_glue`). Writes the
+// gains K (N, 40), kf (N, 4) and the defects rh (N, 10); returns the sum of
+// rh^2 over the stages, in loop order.
+template <typename JT>
+__device__ inline float backward_sweep(const Payload<JT>& q, View<float> zx, View<float> zu,
+                                       const Bounds& bd, float mu, View<float> Ko, View<float> kfo,
+                                       View<float> rho, const StepConsts& c) {
+  const int N = c.n_stages;
+  float P[NX * NX], p[NX];
+  {
+    float zxT[NX], hqT[16], gxT[NX], sigT[3], corrT[3];
+    for (int i = 0; i < NX; ++i) zxT[i] = zx(N, i);
+    for (int i = 0; i < 3; ++i) {
+      const Glue g = glue_pair(zxT[3 + i], q.lxb(N, i), q.uxb(N, i), bd.sxl(N, i), bd.sxu(N, i),
+                               bd.lxl(N, i), bd.lxu(N, i), mu);
+      sigT[i] = g.sig;
+      corrT[i] = g.corr;
+    }
+    for (int j = 0; j < 16; ++j) hqT[j] = ldf(q.hq(N, j));
+    for (int i = 0; i < NX; ++i) gxT[i] = q.gx(N, i);
+    terminal_init_core(hqT, gxT, zxT, sigT, corrT, c, P, p);
+  }
+  Blocks m;
+  float r2 = 0.0f;
+  for (int k = N - 1; k >= 0; --k) {
+    float Hq[4][4], gx[NX], gu[NU], rk[NX], zxk[NX], zx1[NX], zuk[NU];
+    float sig_u[NU], corr_u[NU], sig_x[3], corr_x[3], K[NU][NX], kf[NU], rh[NX];
+    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j) Hq[i][j] = ldf(q.hq(k, i * 4 + j));
+    for (int i = 0; i < NX; ++i) {
+      gx[i] = q.gx(k, i);
+      rk[i] = q.r(k, i);
+      zxk[i] = zx(k, i);
+      zx1[i] = zx(k + 1, i);
+    }
+    for (int l = 0; l < NU; ++l) {
+      gu[l] = q.gu(k, l);
+      zuk[l] = zu(k, l);
+    }
+    load_blocks(q, k, m);
+    for (int l = 0; l < NU; ++l) {
+      const Glue g = glue_pair(zuk[l], q.lub(k, l), q.uub(k, l), bd.sul(k, l), bd.suu(k, l),
+                               bd.lul(k, l), bd.luu(k, l), mu);
+      sig_u[l] = g.sig;
+      corr_u[l] = g.corr;
+    }
+    for (int i = 0; i < 3; ++i) {
+      const Glue g = glue_pair(zxk[3 + i], q.lxb(k, i), q.uxb(k, i), bd.sxl(k, i), bd.sxu(k, i),
+                               bd.lxl(k, i), bd.lxu(k, i), mu);
+      sig_x[i] = g.sig;
+      corr_x[i] = g.corr;
+    }
+    riccati_stage_core(P, p, Hq, gx, gu, m, rk, zxk, zx1, zuk, sig_u, sig_x, corr_u, corr_x, c,
+                       K, kf, rh);
+    for (int l = 0; l < NU; ++l) {
+      for (int j = 0; j < NX; ++j) Ko(k, l * NX + j) = K[l][j];
+      kfo(k, l) = kf[l];
+    }
+    float sq = rh[0] * rh[0];
+    for (int i = 0; i < NX; ++i) {
+      rho(k, i) = rh[i];
+      if (i > 0) sq = sq + rh[i] * rh[i];
+    }
+    r2 = r2 + sq;
+  }
+  return r2;
+}
+
+// Forward rollout from dx (the dx0 residual; clobbered) with the gains of
+// `backward_sweep`, plus the direction recovery, fraction-to-boundary ratios
+// and complementarity partials of every box row (`_forward_kernel_glue`).
+// Writes the directions dxo (N+1, 10), duo (N, 4) and, where dirs.sul.p is
+// set, the slack and dual directions; returns the accumulators over all rows
+// in loop order (ap/ad not yet clamped at 1).
+template <typename JT>
+__device__ inline StepAcc forward_pass(const Payload<JT>& q, View<float> Ko, View<float> kfo,
+                                       View<float> rho, View<float> zx, View<float> zu,
+                                       const Bounds& bd, float mu, float* dx, View<float> dxo,
+                                       View<float> duo, const Dirs& dirs, const StepConsts& c) {
+  const int N = c.n_stages;
+  const bool store = dirs.sul.p != nullptr;
+  StepAcc acc{2.0f, 2.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  auto x_rows = [&](int k) {
+    for (int i = 0; i < 3; ++i) {
+      const Steps st = acc.row(zx(k, 3 + i), dx[3 + i], q.lxb(k, i), q.uxb(k, i), bd.sxl(k, i),
+                               bd.sxu(k, i), bd.lxl(k, i), bd.lxu(k, i), mu, c.tau);
+      if (store) {
+        dirs.sxl(k, i) = st.ds_lo;
+        dirs.sxu(k, i) = st.ds_up;
+        dirs.lxl(k, i) = st.dl_lo;
+        dirs.lxu(k, i) = st.dl_up;
+      }
+    }
+  };
+  Blocks m;
+  float rk[NX], nxt[NX];
+  for (int k = 0; k < N; ++k) {
+    float du[NU];
+    for (int l = 0; l < NU; ++l) {
+      float sdu = Ko(k, l * NX) * dx[0];
+      for (int j = 1; j < NX; ++j) sdu = sdu + Ko(k, l * NX + j) * dx[j];
+      du[l] = sdu + kfo(k, l);
+    }
+    for (int i = 0; i < NX; ++i) dxo(k, i) = dx[i];
+    for (int l = 0; l < NU; ++l) duo(k, l) = du[l];
+    for (int l = 0; l < NU; ++l) {
+      const Steps st = acc.row(zu(k, l), du[l], q.lub(k, l), q.uub(k, l), bd.sul(k, l),
+                               bd.suu(k, l), bd.lul(k, l), bd.luu(k, l), mu, c.tau);
+      if (store) {
+        dirs.sul(k, l) = st.ds_lo;
+        dirs.suu(k, l) = st.ds_up;
+        dirs.lul(k, l) = st.dl_lo;
+        dirs.luu(k, l) = st.dl_up;
+      }
+    }
+    x_rows(k);
+    load_blocks(q, k, m);
+    for (int i = 0; i < NX; ++i) rk[i] = rho(k, i);
+    dyn_step(m, rk, c.h, dx, du, nxt);
+    for (int i = 0; i < NX; ++i) dx[i] = nxt[i];
+  }
+  for (int i = 0; i < NX; ++i) dxo(N, i) = dx[i];
+  x_rows(N);
+  return acc;
+}
+
+// ---- the whole IPM (ops/pallas/ipm_whole.py) ----
+
+__device__ inline void slack_init_pair(float lo, float hi, float v, float s_min, float& s_lo,
+                                       float& s_up) {
+  const float rng = hi - lo;
+  const float floor_ = nmin(s_min * nmin(rng, 1e3f), 0.5f * rng);
+  s_lo = nmax(fabsf(v - lo), floor_);
+  s_up = nmax(fabsf(hi - v), floor_);
+}
+
 // The whole warm-started IPM over one scenario's payload. The duals update
 // in place: each thread reads the carried value of its own element before
-// writing it. zx/zu receive the primal deltas; with xb/ub given (p != null)
-// the SQP axpy is folded into them at the end.
+// writing it. s.zx/s.zu receive the primal deltas; with xb/ub given (p !=
+// null) the SQP axpy is folded into them at the end.
 template <typename JT>
-__device__ void ipm_whole(const Payload<JT>& q, const IpmScratch& s, View<float> zx,
-                          View<float> zu, View<float> lul, View<float> luu, View<float> lxl,
-                          View<float> lxu, float* mu_io, float* eq_out, View<float> xb,
-                          View<float> ub, const StepConsts& c) {
+__device__ void ipm_whole(const Payload<JT>& q, const IpmScratch& s, View<float> lul,
+                          View<float> luu, View<float> lxl, View<float> lxu, float* mu_io,
+                          float* eq_out, View<float> xb, View<float> ub, const StepConsts& c) {
   const int N = c.n_stages;
+  const View<float> zx = s.zx, zu = s.zu;
+  const Bounds bd{s.sul, s.suu, s.sxl, s.sxu, lul, luu, lxl, lxu};
   const float mu_w = *mu_io;
   const bool cold = mu_w < 0.0f;
   const float n_cons = (float)(2 * N * NU + 2 * (N + 1) * 3);
@@ -719,63 +921,7 @@ __device__ void ipm_whole(const Payload<JT>& q, const IpmScratch& s, View<float>
 
   float res2 = 0.0f, ap = 0.0f;
   for (int it = 0; it < c.num_iters; ++it) {
-    // backward Riccati sweep, stages N-1..0
-    float P[NX * NX], p[NX];
-    {
-      float zxT[NX], hqT[16], gxT[NX], sigT[3], corrT[3];
-      for (int i = 0; i < NX; ++i) zxT[i] = zx(N, i);
-      for (int i = 0; i < 3; ++i) {
-        const Glue g = glue_pair(zxT[3 + i], q.lxb(N, i), q.uxb(N, i), s.sxl(N, i), s.sxu(N, i),
-                                 lxl(N, i), lxu(N, i), mu);
-        sigT[i] = g.sig;
-        corrT[i] = g.corr;
-      }
-      for (int j = 0; j < 16; ++j) hqT[j] = ldf(q.hq(N, j));
-      for (int i = 0; i < NX; ++i) gxT[i] = q.gx(N, i);
-      terminal_init_core(hqT, gxT, zxT, sigT, corrT, c, P, p);
-    }
-    float r2 = 0.0f;
-    for (int k = N - 1; k >= 0; --k) {
-      float Hq[4][4], gx[NX], gu[NU], zxk[NX], zx1[NX], zuk[NU];
-      float sig_u[NU], corr_u[NU], sig_x[3], corr_x[3], K[NU][NX], kf[NU], rh[NX];
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j) Hq[i][j] = ldf(q.hq(k, i * 4 + j));
-      for (int i = 0; i < NX; ++i) {
-        gx[i] = q.gx(k, i);
-        rk[i] = q.r(k, i);
-        zxk[i] = zx(k, i);
-        zx1[i] = zx(k + 1, i);
-      }
-      for (int l = 0; l < NU; ++l) {
-        gu[l] = q.gu(k, l);
-        zuk[l] = zu(k, l);
-      }
-      load_blocks(q, k, m);
-      for (int l = 0; l < NU; ++l) {
-        const Glue g = glue_pair(zuk[l], q.lub(k, l), q.uub(k, l), s.sul(k, l), s.suu(k, l),
-                                 lul(k, l), luu(k, l), mu);
-        sig_u[l] = g.sig;
-        corr_u[l] = g.corr;
-      }
-      for (int i = 0; i < 3; ++i) {
-        const Glue g = glue_pair(zxk[3 + i], q.lxb(k, i), q.uxb(k, i), s.sxl(k, i), s.sxu(k, i),
-                                 lxl(k, i), lxu(k, i), mu);
-        sig_x[i] = g.sig;
-        corr_x[i] = g.corr;
-      }
-      riccati_stage_core(P, p, Hq, gx, gu, m, rk, zxk, zx1, zuk, sig_u, sig_x, corr_u, corr_x, c,
-                         K, kf, rh);
-      for (int l = 0; l < NU; ++l) {
-        for (int j = 0; j < NX; ++j) s.K(k, l * NX + j) = K[l][j];
-        s.kf(k, l) = kf[l];
-      }
-      float sq = rh[0] * rh[0];
-      for (int i = 0; i < NX; ++i) {
-        s.rh(k, i) = rh[i];
-        if (i > 0) sq = sq + rh[i] * rh[i];
-      }
-      r2 = r2 + sq;
-    }
+    float r2 = backward_sweep(q, zx, zu, bd, mu, s.K, s.kf, s.rh, c);
     float dx[NX];
     for (int i = 0; i < NX; ++i) dx[i] = dx0[i] - zx(0, i);
     {
@@ -785,31 +931,8 @@ __device__ void ipm_whole(const Payload<JT>& q, const IpmScratch& s, View<float>
     }
 
     // pass A: rollout, fraction-to-boundary and complementarity partials
-    StepAcc acc{2.0f, 2.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int k = 0; k < N; ++k) {
-      float du[NU];
-      for (int l = 0; l < NU; ++l) {
-        float sdu = s.K(k, l * NX) * dx[0];
-        for (int j = 1; j < NX; ++j) sdu = sdu + s.K(k, l * NX + j) * dx[j];
-        du[l] = sdu + s.kf(k, l);
-      }
-      for (int i = 0; i < NX; ++i) s.dx(k, i) = dx[i];
-      for (int l = 0; l < NU; ++l) s.du(k, l) = du[l];
-      for (int l = 0; l < NU; ++l)
-        acc.row(zu(k, l), du[l], q.lub(k, l), q.uub(k, l), s.sul(k, l), s.suu(k, l), lul(k, l),
-                luu(k, l), mu, c.tau);
-      for (int i = 0; i < 3; ++i)
-        acc.row(zx(k, 3 + i), dx[3 + i], q.lxb(k, i), q.uxb(k, i), s.sxl(k, i), s.sxu(k, i),
-                lxl(k, i), lxu(k, i), mu, c.tau);
-      load_blocks(q, k, m);
-      for (int i = 0; i < NX; ++i) rk[i] = s.rh(k, i);
-      dyn_step(m, rk, c.h, dx, du, nxt);
-      for (int i = 0; i < NX; ++i) dx[i] = nxt[i];
-    }
-    for (int i = 0; i < NX; ++i) s.dx(N, i) = dx[i];
-    for (int i = 0; i < 3; ++i)
-      acc.row(zx(N, 3 + i), dx[3 + i], q.lxb(N, i), q.uxb(N, i), s.sxl(N, i), s.sxu(N, i),
-              lxl(N, i), lxu(N, i), mu, c.tau);
+    const StepAcc acc = forward_pass(q, s.K, s.kf, s.rh, zx, zu, bd, mu, dx, s.dx, s.du,
+                                     Dirs{}, c);
     ap = nmin(acc.ap, 1.0f);
     const float ad = nmin(acc.ad, 1.0f);
 
@@ -855,81 +978,6 @@ __device__ void ipm_whole(const Payload<JT>& q, const IpmScratch& s, View<float>
         for (int l = 0; l < NU; ++l) ub(k, l) = zu(k, l) + ub(k, l);
     }
   }
-}
-
-// ---- the whole control step (ops/pallas/step_whole.py) ----
-
-template <typename JT>
-__device__ void step_whole_scenario(const StepPtrs& a, const StepConsts& c, long long B,
-                                    long long b) {
-  const int N = c.n_stages;
-  Workspace<JT> w = carve_workspace<JT>(a.ws, static_cast<JT*>(a.wj), B, N, b);
-  const View<float> xb{a.xb + b, NX, B}, ub{a.ub + b, NU, B};
-  const View<const float> xr{a.xr + b, NX, B}, ur{a.ur + b, NU, B};
-  const View<const float> x0{a.x0 + b, NX, B};
-  const bool with_dist = c.with_dist != 0;
-  const View<const float> fdv{with_dist ? a.fd + b : nullptr, 3, B};
-
-  // phase 1: linearize every stage into the workspace
-  for (int k = 0; k < N; ++k) {
-    float x[NX], x1[NX], u[NU], xrk[NX], urk[NU], fd[3];
-    for (int i = 0; i < NX; ++i) {
-      x[i] = xb(k, i);
-      x1[i] = xb(k + 1, i);
-      xrk[i] = xr(k, i);
-    }
-    for (int l = 0; l < NU; ++l) {
-      u[l] = ub(k, l);
-      urk[l] = ur(k, l);
-    }
-    if (with_dist)
-      for (int t = 0; t < 3; ++t) fd[t] = fdv(k, t);
-    float hq[16], gx[NX], gu[NU], a40[40], b30[30], bc6[6], r[NX];
-    lin_stage_terms(x, x1, u, xrk, urk, with_dist ? fd : nullptr, c, hq, gx, gu, a40, b30, bc6, r);
-    for (int j = 0; j < 16; ++j) w.q.hq(k, j) = stf<JT>(hq[j]);
-    for (int i = 0; i < NX; ++i) {
-      w.q.gx(k, i) = gx[i];
-      w.q.r(k, i) = r[i];
-    }
-    for (int l = 0; l < NU; ++l) w.q.gu(k, l) = gu[l];
-    for (int j = 0; j < 40; ++j) w.q.a(k, j) = stf<JT>(a40[j]);
-    for (int j = 0; j < 30; ++j) w.q.b(k, j) = stf<JT>(b30[j]);
-    for (int j = 0; j < 6; ++j) w.q.bc(k, j) = bc6[j];
-    // bound residuals: u box every stage, v box on interior nodes (nodes 0
-    // and N get +-big below)
-    for (int l = 0; l < NU; ++l) {
-      w.q.lub(k, l) = c.u_lo[l] - u[l];
-      w.q.uub(k, l) = c.u_hi[l] - u[l];
-    }
-    for (int t = 0; t < 3; ++t) {
-      w.q.lxb(k, t) = c.v_lo[t] - x[3 + t];
-      w.q.uxb(k, t) = c.v_hi[t] - x[3 + t];
-    }
-  }
-  {
-    float x1T[NX], xrT[NX], hqT[16], gxT[NX];
-    for (int i = 0; i < NX; ++i) {
-      x1T[i] = xb(N, i);
-      xrT[i] = xr(N, i);
-    }
-    lin_terminal_terms(x1T, xrT, c, hqT, gxT);
-    for (int j = 0; j < 16; ++j) w.q.hq(N, j) = stf<JT>(hqT[j]);
-    for (int i = 0; i < NX; ++i) {
-      w.q.gx(N, i) = gxT[i];
-      w.q.dx0(0, i) = x0(0, i) - xb(0, i);
-    }
-    for (int t = 0; t < 3; ++t) {
-      w.q.lxb(0, t) = -c.big;
-      w.q.uxb(0, t) = c.big;
-      w.q.lxb(N, t) = -c.big;
-      w.q.uxb(N, t) = c.big;
-    }
-  }
-
-  // phases 2+3: the whole IPM over the workspace payload, axpy folded
-  ipm_whole<JT>(w.q, w.s, w.zx, w.zu, View<float>{a.lu_lo + b, NU, B},
-                View<float>{a.lu_up + b, NU, B}, View<float>{a.lx_lo + b, 3, B},
-                View<float>{a.lx_up + b, 3, B}, a.mu + b, a.eq + b, xb, ub, c);
 }
 
 }  // namespace ndp

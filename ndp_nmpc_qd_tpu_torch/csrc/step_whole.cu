@@ -22,7 +22,78 @@
 //
 // Bound to PyTorch through ctypes: plain C entry points, no PyTorch headers.
 
-#include "step_whole.cuh"
+#include "ndp.cuh"
+
+namespace ndp {
+
+// Tensors of one launch. State tensors update in place.
+struct StepPtrs {
+  float* xb;         // (N+1, 10, B) iterates
+  float* ub;         // (N, 4, B)
+  const float* xr;   // (N+1, 10, B) reference
+  const float* ur;   // (N, 4, B)
+  const float* fd;   // (N+1, 3, B) downwash forecast, null without it
+  const float* x0;   // (1, 10, B) measured state
+  float* lu_lo;      // (N, 4, B) carried duals
+  float* lu_up;
+  float* lx_lo;      // (N+1, 3, B)
+  float* lx_up;
+  float* mu;         // (B,) barrier weight, < 0 = cold
+  float* eq;         // (B,) out: equality residual
+  float* ws;         // ws_f32_planes(N) planes of B floats
+  void* wj;          // ws_jac_planes(N) planes of B jac-dtype values
+};
+
+// The workspace: the payload's f32 fields, then the IPM scratch; the
+// curvature fields in the jac dtype.
+__host__ __device__ inline int ws_f32_planes(int N) {
+  return (N + 1) * NX      // gx
+         + N * NU          // gu
+         + N * 6           // bc
+         + N * NX          // r
+         + 2 * N * NU      // lub, uub
+         + 2 * (N + 1) * 3 // lxb, uxb
+         + NX              // dx0
+         + ipm_ws_planes(N);
+}
+
+__host__ __device__ inline int ws_jac_planes(int N) {
+  return (N + 1) * 16 + N * 40 + N * 30;  // hq, a, b
+}
+
+template <typename JT>
+__device__ void step_whole_scenario(const StepPtrs& a, const StepConsts& c, long long B,
+                                    long long b) {
+  const int N = c.n_stages;
+  Payload<JT> q;
+  Carver<float> cv{a.ws, B, b};
+  q.gx = cv.take(N + 1, NX);
+  q.gu = cv.take(N, NU);
+  q.bc = cv.take(N, 6);
+  q.r = cv.take(N, NX);
+  q.lub = cv.take(N, NU);
+  q.uub = cv.take(N, NU);
+  q.lxb = cv.take(N + 1, 3);
+  q.uxb = cv.take(N + 1, 3);
+  q.dx0 = cv.take(1, NX);
+  const IpmScratch s = carve_ipm(cv, N);
+  Carver<JT> cj{static_cast<JT*>(a.wj), B, b};
+  q.hq = cj.take(N + 1, 16);
+  q.a = cj.take(N, 40);
+  q.b = cj.take(N, 30);
+
+  // phase 1: linearize every stage into the workspace
+  linearize_scenario<JT>(View<const float>{a.xb + b, NX, B}, View<const float>{a.ub + b, NU, B},
+                         at(a.xr, NX, B, b), at(a.ur, NU, B, b),
+                         at(c.with_dist ? a.fd : nullptr, 3, B, b), at(a.x0, NX, B, b), q, c);
+
+  // phases 2+3: the whole IPM over the workspace payload, axpy folded
+  ipm_whole<JT>(q, s, at(a.lu_lo, NU, B, b), at(a.lu_up, NU, B, b), at(a.lx_lo, 3, B, b),
+                at(a.lx_up, 3, B, b), a.mu + b, a.eq + b, at(a.xb, NX, B, b),
+                at(a.ub, NU, B, b), c);
+}
+
+}  // namespace ndp
 
 template <typename JT>
 __global__ void __launch_bounds__(128)

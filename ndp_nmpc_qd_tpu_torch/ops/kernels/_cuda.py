@@ -1,0 +1,148 @@
+"""ctypes binding shared by the CUDA kernel wrappers.
+
+Every `csrc/<name>.cu` exports `<name>_consts_size()` and `<name>_ptrs_size()`
+(checked against the mirrors here at load) and launch functions of one
+signature, `int fn(int jac_bf16, const StepConsts*, const Ptrs*, long long B,
+void* stream)`, returning `cudaGetLastError()` after the launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_F = ctypes.c_float
+_P = ctypes.c_void_p
+
+
+def pointers(names):
+    """ctypes fields of void pointers, one per name."""
+    return [(n, _P) for n in names]
+
+
+class StepConsts(ctypes.Structure):
+    """Mirror of `ndp::StepConsts` (csrc/ndp.cuh)."""
+
+    _fields_ = [
+        ("h", _F), ("rk_half", _F), ("rk_step", _F), ("rk_sixth", _F),
+        ("inv_mass", _F), ("gravity", _F), ("stage_scale", _F),
+        ("q_diag", _F * 10), ("gx_scale", _F * 6), ("gu_scale", _F * 4),
+        ("u_lo", _F * 4), ("u_hi", _F * 4), ("v_lo", _F * 3), ("v_hi", _F * 3),
+        ("big", _F), ("diag6_stage", _F * 6), ("diag6_term", _F * 6),
+        ("rdiag_stage", _F * 4), ("tau", _F), ("sigma", _F), ("mu0", _F),
+        ("s_min", _F), ("mu_min", _F), ("substeps", ctypes.c_int),
+        ("num_iters", ctypes.c_int), ("n_stages", ctypes.c_int),
+        ("with_dist", ctypes.c_int),
+    ]
+
+
+QP_FIELDS = ("hq", "gx", "gu", "a", "b", "bc", "r", "lub", "uub", "lxb", "uxb", "dx0")
+
+
+class QpPtrs(ctypes.Structure):
+    """Mirror of `ndp::QpPtrs`: a SparseQp payload and dx0."""
+
+    _fields_ = pointers(QP_FIELDS)
+
+
+def step_consts(n_stages: int, c: dict) -> StepConsts:
+    """Kernel constants from a keyword dict; products are formed here in
+    double and rounded once, as the plain version's Python-float scalars
+    are. Fields a kernel does not read may be missing: they stay 0."""
+    arr = lambda key, n: (_F * n)(*[float(t) for t in c.get(key, (0.0,) * n)])
+    out = StepConsts(
+        h=c["h"], big=c.get("big", 0.0), q_diag=arr("q_diag", 10),
+        u_lo=arr("u_lo", 4), u_hi=arr("u_hi", 4), v_lo=arr("v_lo", 3),
+        v_hi=arr("v_hi", 3), diag6_stage=arr("diag6_stage", 6),
+        diag6_term=arr("diag6_term", 6), rdiag_stage=arr("rdiag_stage", 4),
+        tau=c.get("tau", 0.0), sigma=c.get("sigma", 0.0),
+        mu0=c.get("mu_init", 0.0), s_min=c.get("s_min", 0.0),
+        mu_min=c.get("mu_min", 0.0), num_iters=c.get("num_iters", 0),
+        n_stages=n_stages, with_dist=int(bool(c.get("with_dist", False))),
+    )
+    if "substeps" in c:  # the linearization's constants
+        hh = c["h"] / c["substeps"]
+        s = c["stage_scale"]
+        out.rk_half, out.rk_step, out.rk_sixth = 0.5 * hh, hh, hh / 6.0
+        out.inv_mass, out.gravity, out.stage_scale = 1.0 / c["mass"], c["gravity"], s
+        out.substeps = c["substeps"]
+        out.gx_scale = (_F * 6)(*[s * q for q in c["q_diag"][:6]])
+        out.gu_scale = (_F * 4)(*[s * r for r in c["r_diag"]])
+    return out
+
+
+def bind(name: str, ptrs_type, launchers, planes=()):
+    """The loaded library of `csrc/<name>.cu` with its functions typed and
+    its struct sizes checked against the mirrors."""
+    lib = _build.load(name)
+    if not getattr(lib, "_ndp_ready", False):
+        for fn in launchers:
+            f = getattr(lib, fn)
+            f.argtypes = [ctypes.c_int, _P, _P, ctypes.c_longlong, _P]
+            f.restype = ctypes.c_int
+        for fn in planes:
+            getattr(lib, fn).argtypes = [ctypes.c_int]
+            getattr(lib, fn).restype = ctypes.c_int
+        for fn in (f"{name}_consts_size", f"{name}_ptrs_size"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+        sizes = (getattr(lib, f"{name}_consts_size")(),
+                 getattr(lib, f"{name}_ptrs_size")())
+        if sizes != (ctypes.sizeof(StepConsts), ctypes.sizeof(ptrs_type)):
+            raise RuntimeError(f"{name}: ctypes mirrors disagree with csrc: {sizes}")
+        lib._ndp_ready = True
+    return lib
+
+
+def launch(fn, jac_bf16: bool, consts: StepConsts, ptrs, B: int, device) -> None:
+    """Launch on the current stream of `device`; raise if the launch failed."""
+    err = fn(int(jac_bf16), ctypes.byref(consts), ctypes.byref(ptrs), B,
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError {err}")
+
+
+def need_cuda(name: str, t) -> None:
+    """A wrapper takes the plain version for CPU tensors only."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def check(name, t, shape, device, dtype=torch.float32):
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(
+            f"{name}: need {dtype} on {device}, got {t.dtype} on {t.device}"
+        )
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: need shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def ptr(t):
+    """Device pointer of a tensor, None for a missing one."""
+    return None if t is None else t.data_ptr()
+
+
+JAC_FIELDS = ("hq", "a", "b")  # stored in the jac dtype
+
+
+def qp_shapes(N: int, B: int) -> dict:
+    return dict(
+        hq=(N + 1, 16, B), gx=(N + 1, 10, B), gu=(N, 4, B), a=(N, 40, B),
+        b=(N, 30, B), bc=(N, 6, B), r=(N, 10, B), lub=(N, 4, B), uub=(N, 4, B),
+        lxb=(N + 1, 3, B), uxb=(N + 1, 3, B), dx0=(1, 10, B),
+    )
+
+
+def qp_ptrs(fields: dict, N: int, B: int, jac_bf16: bool, device) -> QpPtrs:
+    """Check the payload tensors given by name (a subset of QP_FIELDS) and
+    return their pointers; fields not given stay null."""
+    shapes = qp_shapes(N, B)
+    jd = torch.bfloat16 if jac_bf16 else torch.float32
+    for name, t in fields.items():
+        check(name, t, shapes[name], device, jd if name in JAC_FIELDS else torch.float32)
+    return QpPtrs(**{n: ptr(t) for n, t in fields.items()})

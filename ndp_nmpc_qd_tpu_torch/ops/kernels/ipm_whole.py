@@ -1,7 +1,8 @@
-"""The whole warm-started interior-point solve: plain PyTorch version.
+"""The whole warm-started interior-point solve: CUDA kernel wrapper and
+plain version.
 
-Port of `ndp_nmpc_qd_tpu/ops/pallas/ipm_whole.py:55-402` (`_slack_init_pair`,
-`_load_blocks_at` and the algorithm of `_ipm_whole_kernel`, including the
+Port of `ndp_nmpc_qd_tpu/ops/pallas/ipm_whole.py` (`riccati_ipm_whole`,
+`_slack_init_pair` and the algorithm of `_ipm_whole_kernel`, including the
 folded SQP axpy). Per scenario: zero-control dynamics-exact start, slack
 initialization at the zero iterate, dual warm mixing with the cold sentinel
 (`mu < 0`), then `num_iters` x (backward Riccati sweep, forward pass A:
@@ -9,44 +10,34 @@ rollout, step ratios and complementarity partials; pass B: primal, slack and
 dual update; barrier update). The final equality residual is
 (1 - a_p) * sqrt(res2) of the last iteration.
 
-Everything is a (B,) tensor per element, held in Python lists indexed
-[stage][element]; the Pallas kernel keeps the same arrays in VMEM scratch and
-the CUDA kernel (`csrc/step_whole.cuh:ipm_whole`) in a global workspace.
+- `riccati_ipm_whole` is the entry point. For CUDA tensors it launches the
+  hand-written kernel (`csrc/ipm_whole.cu`, built at first use) or raises;
+  for CPU tensors it runs `riccati_ipm_whole_plain`. Either way the carried
+  duals and mu (and, with xb/ub, the iterates) update IN PLACE, as the TPU
+  kernel's aliased outputs do. It counts its launches in
+  `riccati_ipm_whole.launches`.
+- `ipm_whole` is the algorithm on a `StagePayload`, every element a (B,)
+  tensor held in Python lists indexed [stage][element]; the Pallas kernel
+  keeps the same arrays in VMEM scratch and the CUDA kernel
+  (`csrc/ndp.cuh:ipm_whole`) in a global workspace.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
 
 import torch
 
-from .linearize import NU, NX, tsum
+from . import _cuda
+from .linearize import NU, NX, stack_rows, tsum
 from .riccati_sparse import (
-    bound_steps,
+    StagePayload,
+    backward_sweep,
     dyn_step,
+    forward_pass,
     glue_pair,
     load_blocks,
-    riccati_stage_core,
-    terminal_init_core,
 )
-
-
-class StagePayload(NamedTuple):
-    """One QP's stage data, [stage][element] lists of (B,) tensors in the
-    compute dtype (curvature entries already rounded to the jac dtype)."""
-
-    hq: list  # N+1 x 16
-    gx: list  # N+1 x 10
-    gu: list  # N x 4
-    a: list  # N x 40
-    b: list  # N x 30
-    bc: list  # N x 6
-    r: list  # N x 10
-    lub: list  # N x 4
-    uub: list  # N x 4
-    lxb: list  # N+1 x 3
-    uxb: list  # N+1 x 3
-    dx0: list  # 10
 
 
 def slack_init_pair(lo, hi, v, s_min):
@@ -126,99 +117,19 @@ def ipm_whole(
     )
 
     res2 = ap = None
+    bd = (sul, suu, sxl, sxu, lul, luu, lxl, lxu)
     for _ in range(num_iters):
-        # backward Riccati sweep, stages N-1..0
-        sigT, corrT = [], []
-        for i in range(3):
-            sg, co, *_ = glue_pair(
-                zx[N][3 + i], qp.lxb[N][i], qp.uxb[N][i],
-                sxl[N][i], sxu[N][i], lxl[N][i], lxu[N][i], mu,
-            )
-            sigT.append(sg)
-            corrT.append(co)
-        P, p = terminal_init_core(
-            qp.hq[N], qp.gx[N], zx[N], sigT, corrT, diag6_term=diag6_term
+        K, kf, rh, r2 = backward_sweep(
+            qp, blocks, zx, zu, bd, mu,
+            h=h, diag6_stage=diag6_stage, diag6_term=diag6_term, rdiag_stage=rdiag_stage,
         )
-        K = [None] * N
-        kf = [None] * N
-        rh = [None] * N
-        r2 = torch.zeros_like(mu)
-        for k in reversed(range(N)):
-            Hq = [[qp.hq[k][i * 4 + j] for j in range(4)] for i in range(4)]
-            sig_u, corr_u = [], []
-            for l in range(NU):
-                sg, co, *_ = glue_pair(
-                    zu[k][l], qp.lub[k][l], qp.uub[k][l],
-                    sul[k][l], suu[k][l], lul[k][l], luu[k][l], mu,
-                )
-                sig_u.append(sg)
-                corr_u.append(co)
-            sig_x, corr_x = [], []
-            for i in range(3):
-                sg, co, *_ = glue_pair(
-                    zx[k][3 + i], qp.lxb[k][i], qp.uxb[k][i],
-                    sxl[k][i], sxu[k][i], lxl[k][i], lxu[k][i], mu,
-                )
-                sig_x.append(sg)
-                corr_x.append(co)
-            K[k], kf[k], rh[k], P, p = riccati_stage_core(
-                P, p, Hq, qp.gx[k], qp.gu[k], *blocks[k], qp.r[k],
-                zx[k], zx[k + 1], zu[k], sig_u, sig_x, corr_u, corr_x,
-                h=h, diag6_stage=diag6_stage, rdiag_stage=rdiag_stage,
-            )
-            r2 = r2 + tsum(rh[k][i] * rh[k][i] for i in range(NX))
         dx0_res = [dx0[i] - zx[0][i] for i in range(NX)]
         r2 = r2 + tsum(v * v for v in dx0_res)
 
         # pass A: rollout, fraction-to-boundary and complementarity partials
-        two = torch.full_like(mu, 2.0)
-        zero = torch.zeros_like(mu)
-        ap, ad, c1, c2, c3, c4 = two, two, zero, zero, zero, zero
-        dxs = [None] * (N + 1)
-        dus = [None] * N
-
-        def rows(v, d, lo, hi, s_lo, s_up, l_lo, l_up, acc):
-            ap, ad, c1, c2, c3, c4 = acc
-            _, _, r_lo, r_up, rc_lo, rc_up = glue_pair(
-                v, lo, hi, s_lo, s_up, l_lo, l_up, mu
-            )
-            ds_lo, ds_up, dl_lo, dl_up, ap_i, ad_i = bound_steps(
-                d, r_lo, r_up, rc_lo, rc_up, s_lo, s_up, l_lo, l_up, tau
-            )
-            return (
-                torch.minimum(ap, ap_i),
-                torch.minimum(ad, ad_i),
-                c1 + s_lo * l_lo + s_up * l_up,
-                c2 + ds_lo * l_lo + ds_up * l_up,
-                c3 + s_lo * dl_lo + s_up * dl_up,
-                c4 + ds_lo * dl_lo + ds_up * dl_up,
-            )
-
-        def x_rows(k, dx, acc):
-            for i in range(3):
-                acc = rows(
-                    zx[k][3 + i], dx[3 + i], qp.lxb[k][i], qp.uxb[k][i],
-                    sxl[k][i], sxu[k][i], lxl[k][i], lxu[k][i], acc,
-                )
-            return acc
-
-        acc = (ap, ad, c1, c2, c3, c4)
-        dx = dx0_res
-        for k in range(N):
-            du = [
-                tsum(K[k][l][j] * dx[j] for j in range(NX)) + kf[k][l]
-                for l in range(NU)
-            ]
-            dxs[k], dus[k] = dx, du
-            for l in range(NU):
-                acc = rows(
-                    zu[k][l], du[l], qp.lub[k][l], qp.uub[k][l],
-                    sul[k][l], suu[k][l], lul[k][l], luu[k][l], acc,
-                )
-            acc = x_rows(k, dx, acc)
-            dx = dyn_step(*blocks[k], rh[k], h, dx, du)
-        dxs[N] = dx
-        ap, ad, c1, c2, c3, c4 = x_rows(N, dx, acc)
+        dxs, dus, _, (ap, ad, c1, c2, c3, c4) = forward_pass(
+            qp, blocks, K, kf, rh, zx, zu, bd, mu, dx0_res, h=h, tau=tau
+        )
         ap = torch.clamp(ap, max=1.0)
         ad = torch.clamp(ad, max=1.0)
 
@@ -264,3 +175,114 @@ def ipm_whole(
         zx = [[zx[k][i] + xb[k, i] for i in range(NX)] for k in range(N + 1)]
         zu = [[zu[k][l] + ub[k, l] for l in range(NU)] for k in range(N)]
     return zx, zu, lul, luu, lxl, lxu, mu, eq
+
+
+def riccati_ipm_whole_plain(
+    hq, gx, gu, a, b, bc, r, lub, uub, lxb, uxb,
+    wlu_lo, wlu_up, wlx_lo, wlx_up, wmu, dx0, xb=None, ub=None,
+    *, h, diag6_stage, diag6_term, rdiag_stage,
+    tau, sigma, mu_init, s_min, mu_min, num_iters,
+):
+    """The same function as the kernel, without updating anything in place.
+
+    The payload as `linearize_stage_data` returns it (hq/a/b may be bf16,
+    read back to the compute dtype of gx). Returns (zx (N+1,10,B) or the
+    updated xb, zu (N,4,B) or the updated ub, lu_lo, lu_up (N,4,B),
+    lx_lo, lx_up (N+1,3,B), mu (B,), eq_res (B,))."""
+    dt = gx.dtype
+    qp = StagePayload(hq.to(dt), gx, gu, a.to(dt), b.to(dt), bc, r, lub, uub, lxb, uxb, dx0[0])
+    zx, zu, lul, luu, lxl, lxu, mu, eq = ipm_whole(
+        qp, wlu_lo, wlu_up, wlx_lo, wlx_up, wmu,
+        h=h, diag6_stage=diag6_stage, diag6_term=diag6_term,
+        rdiag_stage=rdiag_stage, tau=tau, sigma=sigma, mu_init=mu_init,
+        s_min=s_min, mu_min=mu_min, num_iters=num_iters, xb=xb, ub=ub,
+    )
+    return tuple(stack_rows(t) for t in (zx, zu, lul, luu, lxl, lxu)) + (mu, eq)
+
+
+class _IpmPtrs(ctypes.Structure):
+    """Mirror of `ndp::IpmPtrs` (csrc/ipm_whole.cu)."""
+
+    _fields_ = [("q", _cuda.QpPtrs)] + _cuda.pointers((
+        "lu_lo", "lu_up", "lx_lo", "lx_up", "mu", "xb", "ub", "zx", "zu", "eq", "ws",
+    ))
+
+
+def _lib():
+    return _cuda.bind("ipm_whole", _IpmPtrs, ("ipm_whole_launch",), ("ipm_whole_ws_planes",))
+
+
+def make_workspace(B: int, n_stages: int, device):
+    """The kernel's per-scenario scratch, (planes, B) f32: allocated once per
+    batch size by the caller; the kernel allocates nothing."""
+    planes = _lib().ipm_whole_ws_planes(n_stages)
+    return torch.empty((planes, B), dtype=torch.float32, device=device)
+
+
+def riccati_ipm_whole(
+    hq, gx, gu, a, b, bc, r, lub, uub, lxb, uxb,
+    wlu_lo, wlu_up, wlx_lo, wlx_up, wmu, dx0, xb=None, ub=None,
+    *, workspace=None, **consts,
+):
+    """The whole IPM solve in one kernel launch.
+
+    Payload (N+1 or N, d, B) as `linearize_stage_data` returns it; carried
+    duals wlu_* (N, 4, B), wlx_* (N+1, 3, B) and wmu (B,) (< 0 = cold),
+    which update IN PLACE; dx0 (1, 10, B). With xb (N+1, 10, B) / ub
+    (N, 4, B) the SQP axpy is folded into them, in place, and they are the
+    first two results; without them the first two results are new tensors
+    holding the primal deltas zx, zu. `consts` are the keywords of
+    `riccati_ipm_whole_plain`. Returns (zx or xb, zu or ub, wlu_lo, wlu_up,
+    wlx_lo, wlx_up, wmu, eq_res (B,)).
+
+    Counts its kernel launches in `riccati_ipm_whole.launches`.
+    """
+    duals = (wlu_lo, wlu_up, wlx_lo, wlx_up, wmu)
+    fold = xb is not None
+    if gx.device.type == "cpu":
+        outs = riccati_ipm_whole_plain(
+            hq, gx, gu, a, b, bc, r, lub, uub, lxb, uxb, *duals, dx0, xb, ub, **consts
+        )
+        for dst, src in zip(duals, outs[2:7]):
+            dst.copy_(src)
+        if fold:
+            xb.copy_(outs[0])
+            ub.copy_(outs[1])
+        return ((xb, ub) if fold else outs[:2]) + duals + (outs[7],)
+    _cuda.need_cuda("riccati_ipm_whole", gx)
+    Np1, _, B = gx.shape
+    N = Np1 - 1
+    dev = gx.device
+    jac_bf16 = hq.dtype == torch.bfloat16
+    q = _cuda.qp_ptrs(
+        dict(hq=hq, gx=gx, gu=gu, a=a, b=b, bc=bc, r=r, lub=lub, uub=uub, lxb=lxb,
+             uxb=uxb, dx0=dx0), N, B, jac_bf16, dev,
+    )
+    lib = _lib()
+    if workspace is None:
+        workspace = make_workspace(B, N, dev)
+    zs = (xb, ub) if fold else (
+        torch.empty((Np1, NX, B), dtype=torch.float32, device=dev),
+        torch.empty((N, NU, B), dtype=torch.float32, device=dev),
+    )
+    for name, t, shape in (
+        ("lu_lo", wlu_lo, (N, NU, B)), ("lu_up", wlu_up, (N, NU, B)),
+        ("lx_lo", wlx_lo, (Np1, 3, B)), ("lx_up", wlx_up, (Np1, 3, B)),
+        ("mu", wmu, (B,)), ("xb", zs[0], (Np1, NX, B)), ("ub", zs[1], (N, NU, B)),
+        ("workspace", workspace, (lib.ipm_whole_ws_planes(N), B)),
+    ):
+        _cuda.check(name, t, shape, dev)
+    eq = torch.empty(B, dtype=torch.float32, device=dev)
+    ptrs = _IpmPtrs(
+        q=q, lu_lo=wlu_lo.data_ptr(), lu_up=wlu_up.data_ptr(),
+        lx_lo=wlx_lo.data_ptr(), lx_up=wlx_up.data_ptr(), mu=wmu.data_ptr(),
+        xb=_cuda.ptr(xb), ub=_cuda.ptr(ub),
+        zx=None if fold else zs[0].data_ptr(), zu=None if fold else zs[1].data_ptr(),
+        eq=eq.data_ptr(), ws=workspace.data_ptr(),
+    )
+    _cuda.launch(lib.ipm_whole_launch, jac_bf16, _cuda.step_consts(N, consts), ptrs, B, dev)
+    riccati_ipm_whole.launches += 1
+    return zs + duals + (eq,)
+
+
+riccati_ipm_whole.launches = 0

@@ -1,10 +1,16 @@
-"""Stage linearization: the plain PyTorch version of the TPU tile code.
+"""Stage linearization: CUDA kernel wrapper, plain version, tile helpers.
 
-Port of `ndp_nmpc_qd_tpu/ops/pallas/linearize.py:44-190`. Every function
-works on tuples of (B,) tensors, one per state or control element, exactly
-as the Pallas helpers work on tuples of (SUB, 128) tiles; the CUDA kernel's
-device functions of the same names (`csrc/step_whole.cuh`) do the same
-arithmetic for one scenario per thread.
+Port of `ndp_nmpc_qd_tpu/ops/pallas/linearize.py`.
+
+- `linearize_stage_data` is the entry point (the TPU kernel
+  `linearize_stage_data`). For CUDA tensors it launches the hand-written
+  kernel (`csrc/linearize.cu`, built at first use) or raises; for CPU
+  tensors it runs `linearize_stage_data_plain`. It counts its launches in
+  `linearize_stage_data.launches`.
+- The helpers below work on tuples of (B,) tensors, one per state or
+  control element, exactly as the Pallas helpers work on tuples of
+  (SUB, 128) tiles; the CUDA device functions of the same names
+  (`csrc/ndp.cuh`) do the same arithmetic for one scenario per thread.
 
 Per stage: the RK4 step x_next = Phi(x, u, f_dist), its 8 varying tangent
 columns (4 quaternion state columns, 4 control columns; the other columns
@@ -16,6 +22,12 @@ structural zero so that no work is spent on it.
 """
 
 from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda
 
 NX = 10
 NU = 4
@@ -258,3 +270,115 @@ def lin_terminal_terms(x1, xrT, *, q_diag):
     hqT, gxqT = hq_gxq_tiles(q_refT, qeT, wq)
     gxT = [q_diag[i] * (x1[i] - xrT[i]) for i in range(6)] + list(gxqT)
     return hqT, gxT
+
+
+def stack_rows(rows, dtype=None):
+    """[stage][element] lists of (B,) tensors -> one (stage, element, B)."""
+    out = torch.stack([torch.stack(row) for row in rows])
+    return out if dtype is None else out.to(dtype)
+
+
+def linearize_stage_data_plain(
+    xb, ub, xr, ur, fd, x0,
+    *, h, substeps, mass, gravity, stage_scale, q_diag, r_diag,
+    u_lo, u_hi, v_lo, v_hi, with_dist, big, jac_bf16=False,
+):
+    """The same function as the kernel: the SparseQp payload at the
+    iterates, in the compute dtype of xb (f32 or f64), the curvature fields
+    hq/a/b rounded to bf16 with `jac_bf16`.
+
+    Returns (hq (N+1,16,B), gx (N+1,10,B), gu (N,4,B), a (N,40,B),
+    b (N,30,B), bc (N,6,B), r (N,10,B), lu, uu (N,4,B), lx, ux (N+1,3,B),
+    dx0 (1,10,B)); the velocity box is active on nodes 1..N-1 only (rows 0
+    and N are -+big)."""
+    N = xb.shape[0] - 1
+    jd = torch.bfloat16 if jac_bf16 else xb.dtype
+    hq, gx, gu, a, b, bc, r, lub, uub, lxb, uxb = ([] for _ in range(11))
+    for k in range(N):
+        x = tuple(xb[k, i] for i in range(NX))
+        x1 = tuple(xb[k + 1, i] for i in range(NX))
+        u = tuple(ub[k, l] for l in range(NU))
+        xr_k = tuple(xr[k, i] for i in range(NX))
+        ur_k = tuple(ur[k, l] for l in range(NU))
+        fd_k = tuple(fd[k, t] for t in range(3)) if with_dist else None
+        terms = lin_stage_terms(
+            x, x1, u, xr_k, ur_k, fd_k,
+            h=h, substeps=substeps, mass=mass, gravity=gravity,
+            stage_scale=stage_scale, q_diag=q_diag, r_diag=r_diag,
+        )
+        for lst, t in zip((hq, gx, gu, a, b, bc, r), terms):
+            lst.append(t)
+        lub.append([u_lo[l] - u[l] for l in range(NU)])
+        uub.append([u_hi[l] - u[l] for l in range(NU)])
+        lxb.append([v_lo[t] - x[3 + t] for t in range(3)])
+        uxb.append([v_hi[t] - x[3 + t] for t in range(3)])
+    hqT, gxT = lin_terminal_terms(
+        tuple(xb[N, i] for i in range(NX)), tuple(xr[N, i] for i in range(NX)),
+        q_diag=q_diag,
+    )
+    hq.append(hqT)
+    gx.append(gxT)
+    bigt = torch.full_like(xb[0, 0], big)
+    lxb[0] = [-bigt] * 3
+    uxb[0] = [bigt] * 3
+    lxb.append([-bigt] * 3)
+    uxb.append([bigt] * 3)
+    dx0 = [[x0[0, i] - xb[0, i] for i in range(NX)]]
+    return (
+        stack_rows(hq, jd), stack_rows(gx), stack_rows(gu), stack_rows(a, jd),
+        stack_rows(b, jd), stack_rows(bc), stack_rows(r), stack_rows(lub),
+        stack_rows(uub), stack_rows(lxb), stack_rows(uxb), stack_rows(dx0),
+    )
+
+
+class _LinPtrs(ctypes.Structure):
+    """Mirror of `ndp::LinPtrs` (csrc/linearize.cu)."""
+
+    _fields_ = _cuda.pointers(("xb", "ub", "xr", "ur", "fd", "x0")) + [("q", _cuda.QpPtrs)]
+
+
+def linearize_stage_data(xb, ub, xr, ur, fd, x0, **consts):
+    """The SparseQp payload at the RTI iterates, one kernel launch.
+
+    xb (N+1, 10, B), ub (N, 4, B) are the iterates; xr/ur the references;
+    fd (N+1, 3, B) the downwash forecast (None without disturbance); x0
+    (1, 10, B). `consts` are the keywords of `linearize_stage_data_plain`
+    (`solver/ocp_sparse.lin_consts`). Returns new tensors in the order of
+    `linearize_stage_data_plain`.
+
+    Counts its kernel launches in `linearize_stage_data.launches`.
+    """
+    if xb.device.type == "cpu":
+        return linearize_stage_data_plain(xb, ub, xr, ur, fd, x0, **consts)
+    _cuda.need_cuda("linearize_stage_data", xb)
+    Np1, _, B = xb.shape
+    N = Np1 - 1
+    dev = xb.device
+    with_dist = bool(consts["with_dist"])
+    jac_bf16 = bool(consts.get("jac_bf16", False))
+    if B < 1:
+        raise ValueError("linearize_stage_data: empty batch")
+    for name, t, shape in (
+        ("xb", xb, (Np1, NX, B)), ("ub", ub, (N, NU, B)),
+        ("xr", xr, (Np1, NX, B)), ("ur", ur, (N, NU, B)), ("x0", x0, (1, NX, B)),
+    ) + ((("fd", fd, (Np1, 3, B)),) if with_dist else ()):
+        _cuda.check(name, t, shape, dev)
+    lib = _cuda.bind("linearize", _LinPtrs, ("linearize_launch",))
+    shapes = _cuda.qp_shapes(N, B)
+    jd = torch.bfloat16 if jac_bf16 else torch.float32
+    out = {
+        n: torch.empty(shapes[n], dtype=jd if n in _cuda.JAC_FIELDS else torch.float32,
+                       device=dev)
+        for n in _cuda.QP_FIELDS
+    }
+    ptrs = _LinPtrs(
+        xb=xb.data_ptr(), ub=ub.data_ptr(), xr=xr.data_ptr(), ur=ur.data_ptr(),
+        fd=fd.data_ptr() if with_dist else None, x0=x0.data_ptr(),
+        q=_cuda.qp_ptrs(out, N, B, jac_bf16, dev),
+    )
+    _cuda.launch(lib.linearize_launch, jac_bf16, _cuda.step_consts(N, consts), ptrs, B, dev)
+    linearize_stage_data.launches += 1
+    return tuple(out[n] for n in _cuda.QP_FIELDS)
+
+
+linearize_stage_data.launches = 0

@@ -1,13 +1,20 @@
-"""Structure-sparse Riccati stage algebra: plain PyTorch versions.
+"""Structure-sparse Riccati sweeps: CUDA kernel wrappers and plain versions.
 
-Port of the per-stage helpers of `ndp_nmpc_qd_tpu/ops/pallas/riccati_sparse.py`
-(`_bt_dot`, `_glue_pair`, `_terminal_init_core`, `_riccati_stage_core`,
-`_dyn_step`, `_ratio`, `_bound_steps`) and of the 4x4 Cholesky helpers of
-`ops/pallas/riccati.py` (`_chol4`, `_chol4_solve`). Every argument is a
-(B,) tensor or a nested list of them, one per matrix element, as the Pallas
-helpers take one (SUB, 128) tile per element; the CUDA device functions of
-the same names (`csrc/step_whole.cuh`) do the same arithmetic for one
-scenario per thread.
+Port of `ndp_nmpc_qd_tpu/ops/pallas/riccati_sparse.py` (`riccati_iter_fused`
+and its per-stage helpers `_bt_dot`, `_glue_pair`, `_terminal_init_core`,
+`_riccati_stage_core`, `_dyn_step`, `_ratio`, `_bound_steps`) and of the
+4x4 Cholesky helpers of `ops/pallas/riccati.py` (`_chol4`, `_chol4_solve`).
+
+- `riccati_iter_fused` is one glue-fused IPM iteration in two launches:
+  `riccati_backward_glue` (the TPU's `_backward_kernel_glue`) and
+  `riccati_forward_glue` (`_forward_kernel_glue`). For CUDA tensors each
+  launches its hand-written kernel (`csrc/riccati_iter.cu`, built at first
+  use) or raises, and counts its launches in `.launches`; for CPU tensors
+  each runs its plain version.
+- The helpers take (B,) tensors or nested lists (or tensors) of them, one
+  per matrix element, as the Pallas helpers take one (SUB, 128) tile per
+  element; the CUDA device functions of the same names (`csrc/ndp.cuh`) do
+  the same arithmetic for one scenario per thread.
 
 The stage structure (see `solver/ocp_sparse.py` of the JAX package):
 A = [[I, h I, Apq], [0, I, Avq], [0, 0, Aqq]], B has no quaternion <-
@@ -19,9 +26,32 @@ it instead.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
-from .linearize import NU, NX, tsum
+from . import _cuda
+from .linearize import NU, NX, stack_rows, tsum
+
+
+class StagePayload(NamedTuple):
+    """One QP's stage data indexed [stage][element] -> (B,) tensor: nested
+    lists, or (stage, element, B) tensors, in the compute dtype (curvature
+    entries already rounded to the jac dtype and read back)."""
+
+    hq: list  # N+1 x 16
+    gx: list  # N+1 x 10
+    gu: list  # N x 4
+    a: list  # N x 40
+    b: list  # N x 30
+    bc: list  # N x 6
+    r: list  # N x 10
+    lub: list  # N x 4
+    uub: list  # N x 4
+    lxb: list  # N+1 x 3
+    uxb: list  # N+1 x 3
+    dx0: list  # 10
 
 
 def chol4(R):
@@ -291,3 +321,313 @@ def bound_steps(d, r_lo, r_up, rc_lo, rc_up, s_lo, s_up, l_lo, l_up, tau):
     ap = torch.minimum(ratio(s_lo, ds_lo, tau), ratio(s_up, ds_up, tau))
     ad = torch.minimum(ratio(l_lo, dl_lo, tau), ratio(l_up, dl_up, tau))
     return ds_lo, ds_up, dl_lo, dl_up, ap, ad
+
+
+# ---- one IPM iteration: the sweeps over all stages ----
+
+
+def backward_sweep(
+    qp: StagePayload, blocks, zx, zu, bd, mu,
+    *, h, diag6_stage, diag6_term, rdiag_stage,
+):
+    """Backward Riccati sweep at the iterate (zx, zu), stages N-1..0, with
+    the slack elimination of the box rows (`_backward_kernel_glue`).
+
+    bd = (su_lo, su_up, sx_lo, sx_up, lu_lo, lu_up, lx_lo, lx_up), the box
+    rows' slacks and duals; blocks[k] = `load_blocks` of stage k. Returns
+    (K [k][l][j], kf [k][l], rh [k][i], r2), r2 the sum of rh^2 over the
+    stages in loop order."""
+    sul, suu, sxl, sxu, lul, luu, lxl, lxu = bd
+    N = len(blocks)
+    sigT, corrT = [], []
+    for i in range(3):
+        sg, co, *_ = glue_pair(
+            zx[N][3 + i], qp.lxb[N][i], qp.uxb[N][i],
+            sxl[N][i], sxu[N][i], lxl[N][i], lxu[N][i], mu,
+        )
+        sigT.append(sg)
+        corrT.append(co)
+    P, p = terminal_init_core(qp.hq[N], qp.gx[N], zx[N], sigT, corrT, diag6_term=diag6_term)
+    K = [None] * N
+    kf = [None] * N
+    rh = [None] * N
+    r2 = torch.zeros_like(mu)
+    for k in reversed(range(N)):
+        Hq = [[qp.hq[k][i * 4 + j] for j in range(4)] for i in range(4)]
+        sig_u, corr_u = [], []
+        for l in range(NU):
+            sg, co, *_ = glue_pair(
+                zu[k][l], qp.lub[k][l], qp.uub[k][l],
+                sul[k][l], suu[k][l], lul[k][l], luu[k][l], mu,
+            )
+            sig_u.append(sg)
+            corr_u.append(co)
+        sig_x, corr_x = [], []
+        for i in range(3):
+            sg, co, *_ = glue_pair(
+                zx[k][3 + i], qp.lxb[k][i], qp.uxb[k][i],
+                sxl[k][i], sxu[k][i], lxl[k][i], lxu[k][i], mu,
+            )
+            sig_x.append(sg)
+            corr_x.append(co)
+        K[k], kf[k], rh[k], P, p = riccati_stage_core(
+            P, p, Hq, qp.gx[k], qp.gu[k], *blocks[k], qp.r[k],
+            zx[k], zx[k + 1], zu[k], sig_u, sig_x, corr_u, corr_x,
+            h=h, diag6_stage=diag6_stage, rdiag_stage=rdiag_stage,
+        )
+        r2 = r2 + tsum(rh[k][i] * rh[k][i] for i in range(NX))
+    return K, kf, rh, r2
+
+
+def forward_pass(qp: StagePayload, blocks, K, kf, rh, zx, zu, bd, mu, dx, *, h, tau):
+    """Forward rollout from dx (the dx0 residual) with the gains of
+    `backward_sweep`, plus the direction recovery, fraction-to-boundary
+    ratios and complementarity partials of every box row
+    (`_forward_kernel_glue`).
+
+    Returns (dx [N+1][10], du [N][4], dirs, acc): dirs = (dsu_lo, dsu_up,
+    dlu_lo, dlu_up [N][4], dsx_lo, dsx_up, dlx_lo, dlx_up [N+1][3]) and
+    acc = (ap, ad, c1, c2, c3, c4) summed over all rows in loop order, ap/ad
+    with the 2.0 sentinel and not yet clamped at 1."""
+    sul, suu, sxl, sxu, lul, luu, lxl, lxu = bd
+    N = len(blocks)
+    two = torch.full_like(mu, 2.0)
+    zero = torch.zeros_like(mu)
+    acc = [two, two, zero, zero, zero, zero]
+    u_dirs = [[[None] * NU for _ in range(N)] for _ in range(4)]
+    x_dirs = [[[None] * 3 for _ in range(N + 1)] for _ in range(4)]
+
+    def row(v, d, lo, hi, s_lo, s_up, l_lo, l_up):
+        _, _, r_lo, r_up, rc_lo, rc_up = glue_pair(v, lo, hi, s_lo, s_up, l_lo, l_up, mu)
+        ds_lo, ds_up, dl_lo, dl_up, ap_i, ad_i = bound_steps(
+            d, r_lo, r_up, rc_lo, rc_up, s_lo, s_up, l_lo, l_up, tau
+        )
+        ap, ad, c1, c2, c3, c4 = acc
+        acc[:] = (
+            torch.minimum(ap, ap_i),
+            torch.minimum(ad, ad_i),
+            c1 + s_lo * l_lo + s_up * l_up,
+            c2 + ds_lo * l_lo + ds_up * l_up,
+            c3 + s_lo * dl_lo + s_up * dl_up,
+            c4 + ds_lo * dl_lo + ds_up * dl_up,
+        )
+        return ds_lo, ds_up, dl_lo, dl_up
+
+    def x_rows(k, dx):
+        for i in range(3):
+            st = row(
+                zx[k][3 + i], dx[3 + i], qp.lxb[k][i], qp.uxb[k][i],
+                sxl[k][i], sxu[k][i], lxl[k][i], lxu[k][i],
+            )
+            for out, v in zip(x_dirs, st):
+                out[k][i] = v
+
+    dxs = [None] * (N + 1)
+    dus = [None] * N
+    for k in range(N):
+        du = [tsum(K[k][l][j] * dx[j] for j in range(NX)) + kf[k][l] for l in range(NU)]
+        dxs[k], dus[k] = dx, du
+        for l in range(NU):
+            st = row(
+                zu[k][l], du[l], qp.lub[k][l], qp.uub[k][l],
+                sul[k][l], suu[k][l], lul[k][l], luu[k][l],
+            )
+            for out, v in zip(u_dirs, st):
+                out[k][l] = v
+        x_rows(k, dx)
+        dx = dyn_step(*blocks[k], rh[k], h, dx, du)
+    dxs[N] = dx
+    x_rows(N, dx)
+    return dxs, dus, tuple(u_dirs + x_dirs), tuple(acc)
+
+
+def _stage_blocks(a, b, bc, dt):
+    a, b = a.to(dt), b.to(dt)
+    return [load_blocks(a[k], b[k], bc[k]) for k in range(a.shape[0])]
+
+
+def riccati_backward_glue_plain(
+    hq, gx, gu, a, b, bc, r, zx, zu, su_lo, su_up, sx_lo, sx_up,
+    lu_lo, lu_up, lx_lo, lx_up, lub, uub, lxb, uxb, mu,
+    *, h, diag6_stage, diag6_term, rdiag_stage,
+):
+    """The same function as the backward kernel. hq/a/b may be bf16 (read
+    back to the compute dtype of gx). Returns (K (N,40,B), kf (N,4,B),
+    rhat (N,10,B), res2 (B,))."""
+    dt = gx.dtype
+    qp = StagePayload(hq.to(dt), gx, gu, None, None, None, r, lub, uub, lxb, uxb, None)
+    bd = (su_lo, su_up, sx_lo, sx_up, lu_lo, lu_up, lx_lo, lx_up)
+    K, kf, rh, r2 = backward_sweep(
+        qp, _stage_blocks(a, b, bc, dt), zx, zu, bd, mu,
+        h=h, diag6_stage=diag6_stage, diag6_term=diag6_term, rdiag_stage=rdiag_stage,
+    )
+    K40 = [[K[k][l][j] for l in range(NU) for j in range(NX)] for k in range(len(K))]
+    return stack_rows(K40), stack_rows(kf), stack_rows(rh), r2
+
+
+def riccati_forward_glue_plain(
+    a, b, bc, rhat, K, kf, zx, zu, su_lo, su_up, sx_lo, sx_up,
+    lu_lo, lu_up, lx_lo, lx_up, lub, uub, lxb, uxb, mu, dx0_res, *, h, tau,
+):
+    """The same function as the forward kernel. Returns (dx (N+1,10,B),
+    du (N,4,B), dsu_lo, dsu_up, dlu_lo, dlu_up (N,4,B), dsx_lo, dsx_up,
+    dlx_lo, dlx_up (N+1,3,B), ap, ad (B,) clamped at 1, comp4 (4,B))."""
+    N = K.shape[0]
+    qp = StagePayload(None, None, None, None, None, None, None, lub, uub, lxb, uxb, None)
+    bd = (su_lo, su_up, sx_lo, sx_up, lu_lo, lu_up, lx_lo, lx_up)
+    dxs, dus, dirs, acc = forward_pass(
+        qp, _stage_blocks(a, b, bc, bc.dtype), K.reshape(N, NU, NX, -1), kf, rhat,
+        zx, zu, bd, mu, list(dx0_res[0]), h=h, tau=tau,
+    )
+    ap, ad, *comp = acc
+    return (
+        stack_rows(dxs), stack_rows(dus), *(stack_rows(d) for d in dirs),
+        torch.clamp(ap, max=1.0), torch.clamp(ad, max=1.0), torch.stack(comp),
+    )
+
+
+def riccati_iter_fused_plain(
+    hq, gx, gu, a, b, bc, r, zx, zu, su_lo, su_up, sx_lo, sx_up,
+    lu_lo, lu_up, lx_lo, lx_up, lub, uub, lxb, uxb, mu, dx0_res,
+    *, h, diag6_stage, diag6_term, rdiag_stage, tau,
+):
+    """Both plain halves of `riccati_iter_fused`, same outputs."""
+    state = (zx, zu, su_lo, su_up, sx_lo, sx_up, lu_lo, lu_up, lx_lo, lx_up,
+             lub, uub, lxb, uxb, mu)
+    K, kf, rhat, res2 = riccati_backward_glue_plain(
+        hq, gx, gu, a, b, bc, r, *state,
+        h=h, diag6_stage=diag6_stage, diag6_term=diag6_term, rdiag_stage=rdiag_stage,
+    )
+    outs = riccati_forward_glue_plain(a, b, bc, rhat, K, kf, *state, dx0_res, h=h, tau=tau)
+    return outs + (res2,)
+
+
+# ---- the kernels ----
+
+_STATE = ("zx", "zu", "su_lo", "su_up", "sx_lo", "sx_up", "lu_lo", "lu_up", "lx_lo", "lx_up")
+_OUT_FWD = ("dx", "du", "dsu_lo", "dsu_up", "dlu_lo", "dlu_up",
+            "dsx_lo", "dsx_up", "dlx_lo", "dlx_up", "ap", "ad", "comp4")
+
+
+class _IterPtrs(ctypes.Structure):
+    """Mirror of `ndp::IterPtrs` (csrc/riccati_iter.cu)."""
+
+    _fields_ = [("q", _cuda.QpPtrs)] + _cuda.pointers(
+        _STATE + ("mu", "dx0_res", "K", "kf", "rh", "res2") + _OUT_FWD
+    )
+
+
+def _lib():
+    return _cuda.bind(
+        "riccati_iter", _IterPtrs, ("riccati_backward_launch", "riccati_forward_launch")
+    )
+
+
+def _state_shapes(N, B):
+    return dict(
+        zx=(N + 1, NX, B), zu=(N, NU, B), su_lo=(N, NU, B), su_up=(N, NU, B),
+        sx_lo=(N + 1, 3, B), sx_up=(N + 1, 3, B), lu_lo=(N, NU, B), lu_up=(N, NU, B),
+        lx_lo=(N + 1, 3, B), lx_up=(N + 1, 3, B), mu=(B,), dx0_res=(1, NX, B),
+        K=(N, NU * NX, B), kf=(N, NU, B), rh=(N, NX, B), res2=(B,),
+        dx=(N + 1, NX, B), du=(N, NU, B), dsu_lo=(N, NU, B), dsu_up=(N, NU, B),
+        dlu_lo=(N, NU, B), dlu_up=(N, NU, B), dsx_lo=(N + 1, 3, B),
+        dsx_up=(N + 1, 3, B), dlx_lo=(N + 1, 3, B), dlx_up=(N + 1, 3, B),
+        ap=(B,), ad=(B,), comp4=(4, B),
+    )
+
+
+def _ptrs(qp: dict, tensors: dict, a):
+    """Check every tensor and build the pointer struct; returns it with the
+    batch and device."""
+    _cuda.need_cuda("riccati_iter_fused", a)
+    N, _, B = a.shape
+    dev = a.device
+    shapes = _state_shapes(N, B)
+    for name, t in tensors.items():
+        _cuda.check(name, t, shapes[name], dev)
+    q = _cuda.qp_ptrs(qp, N, B, a.dtype == torch.bfloat16, dev)
+    return _IterPtrs(q=q, **{n: _cuda.ptr(t) for n, t in tensors.items()}), N, B, dev
+
+
+def riccati_backward_glue(
+    hq, gx, gu, a, b, bc, r, zx, zu, su_lo, su_up, sx_lo, sx_up,
+    lu_lo, lu_up, lx_lo, lx_up, lub, uub, lxb, uxb, mu, **consts,
+):
+    """Backward sweep of one IPM iteration, one kernel launch; arguments and
+    results as `riccati_backward_glue_plain`. Counts its launches in
+    `riccati_backward_glue.launches`."""
+    if a.device.type == "cpu":
+        return riccati_backward_glue_plain(
+            hq, gx, gu, a, b, bc, r, zx, zu, su_lo, su_up, sx_lo, sx_up,
+            lu_lo, lu_up, lx_lo, lx_up, lub, uub, lxb, uxb, mu, **consts,
+        )
+    N, _, B = a.shape
+    out = {n: torch.empty(s, dtype=torch.float32, device=a.device)
+           for n, s in _state_shapes(N, B).items() if n in ("K", "kf", "rh", "res2")}
+    state = dict(zip(_STATE, (zx, zu, su_lo, su_up, sx_lo, sx_up, lu_lo, lu_up, lx_lo, lx_up)))
+    ptrs, N, B, dev = _ptrs(
+        dict(hq=hq, gx=gx, gu=gu, a=a, b=b, bc=bc, r=r, lub=lub, uub=uub, lxb=lxb, uxb=uxb),
+        dict(state, mu=mu, **out), a,
+    )
+    _cuda.launch(_lib().riccati_backward_launch, a.dtype == torch.bfloat16,
+                 _cuda.step_consts(N, consts), ptrs, B, dev)
+    riccati_backward_glue.launches += 1
+    return out["K"], out["kf"], out["rh"], out["res2"]
+
+
+def riccati_forward_glue(
+    a, b, bc, rhat, K, kf, zx, zu, su_lo, su_up, sx_lo, sx_up,
+    lu_lo, lu_up, lx_lo, lx_up, lub, uub, lxb, uxb, mu, dx0_res, **consts,
+):
+    """Forward rollout of one IPM iteration, one kernel launch; arguments
+    and results as `riccati_forward_glue_plain`. Counts its launches in
+    `riccati_forward_glue.launches`."""
+    if a.device.type == "cpu":
+        return riccati_forward_glue_plain(
+            a, b, bc, rhat, K, kf, zx, zu, su_lo, su_up, sx_lo, sx_up,
+            lu_lo, lu_up, lx_lo, lx_up, lub, uub, lxb, uxb, mu, dx0_res, **consts,
+        )
+    N, _, B = a.shape
+    out = {n: torch.empty(s, dtype=torch.float32, device=a.device)
+           for n, s in _state_shapes(N, B).items() if n in _OUT_FWD}
+    state = dict(zip(_STATE, (zx, zu, su_lo, su_up, sx_lo, sx_up, lu_lo, lu_up, lx_lo, lx_up)))
+    ptrs, N, B, dev = _ptrs(
+        dict(a=a, b=b, bc=bc, lub=lub, uub=uub, lxb=lxb, uxb=uxb),
+        dict(state, mu=mu, dx0_res=dx0_res, K=K, kf=kf, rh=rhat, **out), a,
+    )
+    _cuda.launch(_lib().riccati_forward_launch, a.dtype == torch.bfloat16,
+                 _cuda.step_consts(N, consts), ptrs, B, dev)
+    riccati_forward_glue.launches += 1
+    return tuple(out[n] for n in _OUT_FWD)
+
+
+riccati_backward_glue.launches = 0
+riccati_forward_glue.launches = 0
+
+
+def riccati_iter_fused(
+    hq, gx, gu, a, b, bc, r, zx, zu, su_lo, su_up, sx_lo, sx_up,
+    lu_lo, lu_up, lx_lo, lx_up, lub, uub, lxb, uxb, mu, dx0_res,
+    *, h, diag6_stage, diag6_term, rdiag_stage, tau,
+):
+    """One complete glue-fused IPM iteration's device work: the backward
+    sweep with the slack elimination, then the forward rollout with the
+    slack/dual direction recovery, the fraction-to-boundary step sizes and
+    the complementarity partials (two launches on CUDA tensors).
+
+    Payload (N+1 or N, d, B) as `linearize_stage_data` returns it; the
+    iterate zx (N+1,10,B), zu (N,4,B), the slacks and duals su/lu (N,4,B),
+    sx/lx (N+1,3,B), mu (B,) and dx0_res (1,10,B). Returns (dx (N+1,10,B),
+    du (N,4,B), dsu_lo, dsu_up, dlu_lo, dlu_up (N,4,B), dsx_lo, dsx_up,
+    dlx_lo, dlx_up (N+1,3,B), ap, ad (B,) reduced and clamped at 1, comp4
+    (4,B) = [sum s*l, sum ds*l, sum s*dl, sum ds*dl] over all box rows,
+    res2 (B,) = sum of rhat^2 over the stages (add the dx0 residual
+    outside)), as the TPU version does."""
+    state = (zx, zu, su_lo, su_up, sx_lo, sx_up, lu_lo, lu_up, lx_lo, lx_up,
+             lub, uub, lxb, uxb, mu)
+    K, kf, rhat, res2 = riccati_backward_glue(
+        hq, gx, gu, a, b, bc, r, *state,
+        h=h, diag6_stage=diag6_stage, diag6_term=diag6_term, rdiag_stage=rdiag_stage,
+    )
+    outs = riccati_forward_glue(a, b, bc, rhat, K, kf, *state, dx0_res, h=h, tau=tau)
+    return outs + (res2,)

@@ -10,8 +10,9 @@ warm-started interior-point QP and folds the SQP axpy, per scenario.
   iterates and carried duals update IN PLACE, as the TPU kernel's aliased
   outputs do, and it returns the equality residual.
 - `control_step_whole_plain` computes the same function with batched tensor
-  algebra: Python loops over stages and iterations, ops on (B,) tensors.
-  It works in f32 and f64.
+  algebra: the plain versions of the two-kernel path's K3 and K2 (Python
+  loops over stages and iterations, ops on (B,) tensors). It works in f32
+  and f64.
 
 All tensors are in the port's kernel layout (stage, element, B).
 """
@@ -22,87 +23,24 @@ import ctypes
 
 import torch
 
-from . import _build
-from .ipm_whole import StagePayload, ipm_whole
-from .linearize import NU, NX, lin_stage_terms, lin_terminal_terms
-
-_F = ctypes.c_float
-
-
-class _StepConsts(ctypes.Structure):
-    """Mirror of `ndp::StepConsts` (csrc/step_whole.cuh)."""
-
-    _fields_ = [
-        ("h", _F), ("rk_half", _F), ("rk_step", _F), ("rk_sixth", _F),
-        ("inv_mass", _F), ("gravity", _F), ("stage_scale", _F),
-        ("q_diag", _F * 10), ("gx_scale", _F * 6), ("gu_scale", _F * 4),
-        ("u_lo", _F * 4), ("u_hi", _F * 4), ("v_lo", _F * 3), ("v_hi", _F * 3),
-        ("big", _F), ("diag6_stage", _F * 6), ("diag6_term", _F * 6),
-        ("rdiag_stage", _F * 4), ("tau", _F), ("sigma", _F), ("mu0", _F),
-        ("s_min", _F), ("mu_min", _F), ("substeps", ctypes.c_int),
-        ("num_iters", ctypes.c_int), ("n_stages", ctypes.c_int),
-        ("with_dist", ctypes.c_int),
-    ]
-
-
-_PTRS = (
-    "xb", "ub", "xr", "ur", "fd", "x0", "lu_lo", "lu_up", "lx_lo", "lx_up",
-    "mu", "eq", "ws", "wj",
-)
+from . import _cuda
+from .ipm_whole import riccati_ipm_whole_plain
+from .linearize import NU, NX, linearize_stage_data_plain
 
 
 class _StepPtrs(ctypes.Structure):
-    """Mirror of `ndp::StepPtrs`."""
+    """Mirror of `ndp::StepPtrs` (csrc/step_whole.cu)."""
 
-    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS]
+    _fields_ = _cuda.pointers((
+        "xb", "ub", "xr", "ur", "fd", "x0", "lu_lo", "lu_up", "lx_lo", "lx_up",
+        "mu", "eq", "ws", "wj",
+    ))
 
 
 def _lib():
-    lib = _build.load("step_whole")
-    if not getattr(lib, "_ndp_ready", False):
-        lib.step_whole_launch.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_void_p,
-        ]
-        for fn, args in (
-            ("step_whole_ws_planes", [ctypes.c_int]),
-            ("step_whole_jac_planes", [ctypes.c_int]),
-            ("step_whole_consts_size", []),
-            ("step_whole_ptrs_size", []),
-        ):
-            getattr(lib, fn).argtypes = args
-        for fn in ("step_whole_launch", "step_whole_ws_planes",
-                   "step_whole_jac_planes", "step_whole_consts_size",
-                   "step_whole_ptrs_size"):
-            getattr(lib, fn).restype = ctypes.c_int
-        sizes = (lib.step_whole_consts_size(), lib.step_whole_ptrs_size())
-        if sizes != (ctypes.sizeof(_StepConsts), ctypes.sizeof(_StepPtrs)):
-            raise RuntimeError(f"ctypes mirrors disagree with csrc: {sizes}")
-        lib._ndp_ready = True
-    return lib
-
-
-def _c_consts(c: dict, n_stages: int) -> _StepConsts:
-    """Kernel constants; products are formed here in double and rounded
-    once, as the plain version's Python-float scalars are."""
-    hh = c["h"] / c["substeps"]
-    s = c["stage_scale"]
-    arr = lambda v, n: (_F * n)(*[float(t) for t in v])
-    return _StepConsts(
-        h=c["h"], rk_half=0.5 * hh, rk_step=hh, rk_sixth=hh / 6.0,
-        inv_mass=1.0 / c["mass"], gravity=c["gravity"], stage_scale=s,
-        q_diag=arr(c["q_diag"], 10),
-        gx_scale=arr([s * q for q in c["q_diag"][:6]], 6),
-        gu_scale=arr([s * r for r in c["r_diag"]], 4),
-        u_lo=arr(c["u_lo"], 4), u_hi=arr(c["u_hi"], 4),
-        v_lo=arr(c["v_lo"], 3), v_hi=arr(c["v_hi"], 3), big=c["big"],
-        diag6_stage=arr(c["diag6_stage"], 6),
-        diag6_term=arr(c["diag6_term"], 6),
-        rdiag_stage=arr(c["rdiag_stage"], 4), tau=c["tau"],
-        sigma=c["sigma"], mu0=c["mu_init"], s_min=c["s_min"],
-        mu_min=c["mu_min"], substeps=c["substeps"],
-        num_iters=c["num_iters"], n_stages=n_stages,
-        with_dist=int(bool(c["with_dist"])),
+    return _cuda.bind(
+        "step_whole", _StepPtrs, ("step_whole_launch",),
+        ("step_whole_ws_planes", "step_whole_jac_planes"),
     )
 
 
@@ -120,17 +58,6 @@ def make_workspace(B: int, n_stages: int, jac_bf16: bool, device):
         dtype=torch.bfloat16 if jac_bf16 else torch.float32, device=device,
     )
     return ws, wj
-
-
-def _check(name, t, shape, device):
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(
-            f"{name}: need float32 on {device}, got {t.dtype} on {t.device}"
-        )
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: need shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
 def control_step_whole(
@@ -155,8 +82,7 @@ def control_step_whole(
         for dst, src in zip(state, outs[:7]):
             dst.copy_(src)
         return outs[7]
-    if xb.device.type != "cuda":
-        raise ValueError(f"control_step_whole: unsupported device {xb.device}")
+    _cuda.need_cuda("control_step_whole", xb)
 
     Np1, _, B = xb.shape
     N = Np1 - 1
@@ -172,18 +98,15 @@ def control_step_whole(
         ("lx_lo", lx_lo, (Np1, 3, B)), ("lx_up", lx_up, (Np1, 3, B)),
         ("mu", mu, (B,)),
     ) + ((("fd", fd, (Np1, 3, B)),) if with_dist else ()):
-        _check(name, t, shape, dev)
+        _cuda.check(name, t, shape, dev)
     lib = _lib()
     jac_bf16 = bool(consts.get("jac_bf16", False))
     if workspace is None:
         workspace = make_workspace(B, N, jac_bf16, dev)
     ws, wj = workspace
-    _check("workspace", ws, (lib.step_whole_ws_planes(N), B), dev)
-    want_jd = torch.bfloat16 if jac_bf16 else torch.float32
-    if tuple(wj.shape) != (lib.step_whole_jac_planes(N), B) or (
-        wj.dtype != want_jd or wj.device != dev or not wj.is_contiguous()
-    ):
-        raise ValueError("workspace: jac planes of the wrong shape or dtype")
+    _cuda.check("workspace", ws, (lib.step_whole_ws_planes(N), B), dev)
+    _cuda.check("workspace jac planes", wj, (lib.step_whole_jac_planes(N), B), dev,
+                torch.bfloat16 if jac_bf16 else torch.float32)
 
     eq = torch.empty(B, dtype=torch.float32, device=dev)
     ptrs = _StepPtrs(
@@ -193,12 +116,7 @@ def control_step_whole(
         lx_lo=lx_lo.data_ptr(), lx_up=lx_up.data_ptr(), mu=mu.data_ptr(),
         eq=eq.data_ptr(), ws=ws.data_ptr(), wj=wj.data_ptr(),
     )
-    err = lib.step_whole_launch(
-        int(jac_bf16), ctypes.byref(_c_consts(consts, N)), ctypes.byref(ptrs),
-        B, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"step_whole kernel launch failed: cudaError {err}")
+    _cuda.launch(lib.step_whole_launch, jac_bf16, _cuda.step_consts(N, consts), ptrs, B, dev)
     control_step_whole.launches += 1
     return eq
 
@@ -213,68 +131,21 @@ def control_step_whole_plain(
     diag6_stage, diag6_term, rdiag_stage,
     tau, sigma, mu_init, s_min, mu_min, num_iters, jac_bf16=False,
 ):
-    """The same step as the kernel, without updating anything in place.
+    """The same step as the kernel, without updating anything in place:
+    `linearize_stage_data_plain`, then `riccati_ipm_whole_plain` with the
+    axpy folded.
 
     Returns (xb_new, ub_new, lu_lo, lu_up, lx_lo, lx_up, mu, eq_res)."""
-    N = xb.shape[0] - 1
-    dt = xb.dtype
-
-    def jac(terms):
-        # curvature payloads are stored in the jac dtype and read back
-        if not jac_bf16:
-            return list(terms)
-        return [t.to(torch.bfloat16).to(dt) for t in terms]
-
-    hq, gx, gu, a, b, bc, r, lub, uub, lxb, uxb = ([] for _ in range(11))
-    for k in range(N):
-        x = tuple(xb[k, i] for i in range(NX))
-        x1 = tuple(xb[k + 1, i] for i in range(NX))
-        u = tuple(ub[k, l] for l in range(NU))
-        xr_k = tuple(xr[k, i] for i in range(NX))
-        ur_k = tuple(ur[k, l] for l in range(NU))
-        fd_k = tuple(fd[k, t] for t in range(3)) if with_dist else None
-        hq_k, gx_k, gu_k, a40, b30, bc6, r_k = lin_stage_terms(
-            x, x1, u, xr_k, ur_k, fd_k,
-            h=h, substeps=substeps, mass=mass, gravity=gravity,
-            stage_scale=stage_scale, q_diag=q_diag, r_diag=r_diag,
-        )
-        hq.append(jac(hq_k))
-        gx.append(gx_k)
-        gu.append(gu_k)
-        a.append(jac(a40))
-        b.append(jac(b30))
-        bc.append(bc6)
-        r.append(r_k)
-        # u box every stage; v box on interior nodes (0 and N get +-big)
-        lub.append([u_lo[l] - u[l] for l in range(NU)])
-        uub.append([u_hi[l] - u[l] for l in range(NU)])
-        lxb.append([v_lo[t] - x[3 + t] for t in range(3)])
-        uxb.append([v_hi[t] - x[3 + t] for t in range(3)])
-    hqT, gxT = lin_terminal_terms(
-        tuple(xb[N, i] for i in range(NX)), tuple(xr[N, i] for i in range(NX)),
-        q_diag=q_diag,
+    *qp, dx0 = linearize_stage_data_plain(
+        xb, ub, xr, ur, fd, x0,
+        h=h, substeps=substeps, mass=mass, gravity=gravity,
+        stage_scale=stage_scale, q_diag=q_diag, r_diag=r_diag,
+        u_lo=u_lo, u_hi=u_hi, v_lo=v_lo, v_hi=v_hi, with_dist=with_dist,
+        big=big, jac_bf16=jac_bf16,
     )
-    hq.append(jac(hqT))
-    gx.append(gxT)
-    bigt = torch.full_like(xb[0, 0], big)
-    lxb[0] = [-bigt] * 3
-    uxb[0] = [bigt] * 3
-    lxb.append([-bigt] * 3)
-    uxb.append([bigt] * 3)
-    dx0 = [x0[0, i] - xb[0, i] for i in range(NX)]
-
-    qp = StagePayload(hq, gx, gu, a, b, bc, r, lub, uub, lxb, uxb, dx0)
-    zx, zu, lul, luu, lxl, lxu, mu, eq = ipm_whole(
-        qp, wlu_lo, wlu_up, wlx_lo, wlx_up, wmu,
+    return riccati_ipm_whole_plain(
+        *qp, wlu_lo, wlu_up, wlx_lo, wlx_up, wmu, dx0, xb, ub,
         h=h, diag6_stage=diag6_stage, diag6_term=diag6_term,
         rdiag_stage=rdiag_stage, tau=tau, sigma=sigma, mu_init=mu_init,
-        s_min=s_min, mu_min=mu_min, num_iters=num_iters, xb=xb, ub=ub,
-    )
-
-    def stack(rows):
-        return torch.stack([torch.stack(row) for row in rows])
-
-    return (
-        stack(zx), stack(zu), stack(lul), stack(luu), stack(lxl), stack(lxu),
-        mu, eq,
+        s_min=s_min, mu_min=mu_min, num_iters=num_iters,
     )

@@ -16,10 +16,11 @@ import torch
 
 
 def pack(x: torch.Tensor) -> torch.Tensor:
-    """(B, s, d...) -> (s, prod(d), B), contiguous."""
+    """(B, s, d...) -> (s, prod(d), B), a new contiguous tensor (never a view
+    of x, so kernels may update it in place)."""
     B, s = x.shape[0], x.shape[1]
     d = math.prod(x.shape[2:])
-    return x.reshape(B, s, d).permute(1, 2, 0).contiguous()
+    return x.reshape(B, s, d).permute(1, 2, 0).clone(memory_format=torch.contiguous_format)
 
 
 def unpack(x: torch.Tensor, trailing: tuple) -> torch.Tensor:

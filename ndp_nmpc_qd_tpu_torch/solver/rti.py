@@ -1,9 +1,9 @@
-"""SQP-RTI controller on the fused one-kernel control step.
+"""SQP-RTI controller on the port's kernels.
 
 Port of `ndp_nmpc_qd_tpu/solver/rti.py` (`RtiState`, `RtiInfo`,
-`RtiController`, `unpack_iterates`, and the `packed_state=True,
-whole_step=True` branch of `make_batched_rti_controller`). Semantics mirror
-the reference controller (`nmpc_ctl/nmpc_body_rate_ctl.py`):
+`RtiController`, `unpack_iterates` and the pallas-backend branches of
+`make_batched_rti_controller`). Semantics mirror the reference controller
+(`nmpc_ctl/nmpc_body_rate_ctl.py`):
 
 - `reset(xr, ur)` seeds every shooting-node iterate with the reference and
   marks every scenario's QP duals cold (`mu = -1`), killing warm starts
@@ -13,11 +13,12 @@ the reference controller (`nmpc_ctl/nmpc_body_rate_ctl.py`):
   initial state pinned to x0, take the full step, return the first control
   clipped to the actuator box plus solver health.
 
-The iterates and carried duals live in kernel layout (stage, element, B) and
-are updated IN PLACE by the step: `update` returns the same tensors in its
-new state, and the state passed in must not be used afterwards. `reset`
-clones the references for that reason, so the caller's `xr`/`ur` are never
-written.
+With `packed_state=True` the iterates and carried duals live in kernel
+layout (stage, element, B) and are updated IN PLACE by the step: `update`
+returns the same tensors in its new state, and the state passed in must not
+be used afterwards. `reset` copies the references for that reason, so the
+caller's `xr`/`ur` are never written. The batch-first state
+(`packed_state=False`) is not updated in place.
 """
 
 from __future__ import annotations
@@ -27,18 +28,19 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device
-from ..ops.kernels.step_whole import make_workspace
+from ..ops.kernels import ipm_whole, step_whole
 from ..ops.layout import pack, unpack
 from ..params import OcpParams, VehicleParams
-from .ocp_sparse import make_whole_step
-from .qp_ipm_sparse import IpmWarm, cold_warm
+from .ocp_sparse import make_linearizer, make_whole_step
+from .qp_ipm_sparse import IpmWarm, cold_warm, ipm_sparse
 
 
 class RtiState(NamedTuple):
-    """Shooting-node iterates, kernel layout: x_bar (N+1, 10, B), u_bar
-    (N, 4, B). `ipm` (warm_start=True) carries the QP duals across ticks:
-    (lu_lo, lu_up (N, 4, B), lx_lo, lx_up (N+1, 3, B), mu (B,)); mu < 0
-    marks a scenario cold."""
+    """Shooting-node iterates: kernel layout x_bar (N+1, 10, B), u_bar
+    (N, 4, B) with `packed_state=True`, batch-first (B, N+1, 10), (B, N, 4)
+    otherwise. `ipm` (warm_start=True) carries the QP duals across ticks,
+    (lu_lo, lu_up, lx_lo, lx_up, mu) in the same layout ((N, 4, B) or
+    (B, N, 4) and so on; mu (B,)); mu < 0 marks a scenario cold."""
 
     x_bar: torch.Tensor
     u_bar: torch.Tensor
@@ -57,7 +59,7 @@ class RtiController(NamedTuple):
     ocp: OcpParams
     vehicle: VehicleParams
     with_disturbance: bool
-    layout: str = "kernel"
+    layout: str = "batch"  # "kernel" with packed_state=True
     device: torch.device | None = None
 
 
@@ -69,11 +71,16 @@ def unpack_iterates(state: RtiState, B: int):
     )
 
 
-def first_control_and_health(ocp: OcpParams, x_bar, u_bar, eq_res, eq_tol=1e-3):
+def first_control_and_health(
+    ocp: OcpParams, x_bar, u_bar, eq_res, eq_tol=1e-3, layout="kernel"
+):
     """u0 (B, 4) clipped to the actuator box, and the health flag (B,):
     finite residual below eq_tol, the planned controls inside the box
     (tolerance 1e-4 of its range) and the planned velocities of nodes
-    1..N-1 inside the v box (tolerance 1e-3 of its range)."""
+    1..N-1 inside the v box (tolerance 1e-3 of its range). The iterates
+    are in kernel layout, or batch-first with layout="batch"."""
+    if layout == "batch":  # (B, s, d) -> (s, d, B) views
+        x_bar, u_bar = x_bar.permute(1, 2, 0), u_bar.permute(1, 2, 0)
     dt, dev = u_bar.dtype, u_bar.device
     N = ocp.N_node
     u_lo = torch.as_tensor(ocp.u_lower(), dtype=dt, device=dev)
@@ -104,19 +111,33 @@ def make_batched_rti_controller(
     backend: str = "auto",
     warm_start: bool = False,
     jac_bf16: bool = False,
+    fused_lin: bool = True,
     lqr_start: bool = True,
     whole_ipm: bool = False,
     packed_state: bool = False,
     whole_step: bool = False,
     device=None,
 ) -> RtiController:
-    """Batch-first RTI controller on the fused control-step kernel.
+    """Batch-first RTI controller on the port's kernels (the JAX package's
+    pallas backend).
 
-    Only the deployed combination is ported: `packed_state=True,
-    whole_step=True` (the whole step in one launch, which implies the
-    zero-control start, so `lqr_start` and `whole_ipm` do not change it, as
-    in the JAX package). `warm_start` carries the QP duals across ticks;
-    `jac_bf16` stores the curvature payloads in bfloat16.
+    - `packed_state=True, whole_step=True`: the whole step in one launch
+      (K1), which implies the zero-control start, so `lqr_start` and
+      `whole_ipm` do not change it.
+    - `whole_step=False` (or `packed_state=False`, where the JAX package
+      ignores `whole_step` too): the linearization (K3), then with
+      `whole_ipm=True` the whole IPM in one launch (K2), with the axpy
+      folded into it when `packed_state=True`; with `whole_ipm=False` one
+      glue-fused iteration (K4 + K5) per IPM iteration from the
+      zero-control start, which needs `lqr_start=False`.
+    - `packed_state=True` keeps the state in kernel layout, updated in
+      place; `packed_state=False` keeps it batch-first and packs the inputs
+      and unpacks the deltas every tick. The port does not pad B.
+
+    `warm_start` carries the QP duals across ticks; `jac_bf16` stores the
+    curvature payloads in bfloat16. Not ported yet, and raising: the scan
+    and legacy dense backends, `fused_lin=False` and the clipped-LQR start
+    of the per-iteration path.
 
     Runs on `device`, by default the card; without a card and without an
     explicit device it raises.
@@ -126,63 +147,140 @@ def make_batched_rti_controller(
             f"backend={backend!r} is not ported yet: the scan controller is "
             "ROADMAP Queue 1 item 8, the legacy dense kernels Queue 2 K8+K9"
         )
-    if not (packed_state and whole_step):
+    if not fused_lin:
         raise NotImplementedError(
-            "only packed_state=True, whole_step=True is ported: the "
-            "two-kernel whole-IPM path is ROADMAP Queue 2 K2+K3, the "
-            "per-iteration kernels K4+K5"
+            "fused_lin=False (the jnp sparse linearizer) is not ported yet: "
+            "ROADMAP Queue 1 item 10"
+        )
+    one_kernel = packed_state and whole_step
+    if not (one_kernel or whole_ipm) and lqr_start:
+        raise NotImplementedError(
+            "lqr_start=True on the per-iteration path needs the clipped-LQR "
+            "start sweep riccati_sweep_sparse: ROADMAP Queue 2 K6+K7"
         )
     if qp_iters < 1:
         raise ValueError(f"qp_iters must be >= 1, got {qp_iters}")
     dev = resolve_device(device)
-    step = make_whole_step(
-        ocp, vehicle, with_disturbance, jac_bf16=jac_bf16, num_iters=qp_iters
-    )
     N = ocp.N_node
     workspaces = {}
+
+    def workspace(B, make):
+        """A kernel workspace per batch size, allocated once (card only)."""
+        if dev.type != "cuda":
+            return None
+        if B not in workspaces:
+            workspaces[B] = make(B)
+        return workspaces[B]
 
     def as_input(a, dtype):
         return torch.as_tensor(a, dtype=dtype, device=dev)
 
-    def reset(xr, ur) -> RtiState:
+    def reset_packed(xr, ur) -> RtiState:
         xr = torch.as_tensor(xr, device=dev)
         ur = torch.as_tensor(ur, device=dev)
-        # clone: the step updates the iterates in place, and `pack` may
-        # return a view of the caller's tensor (B = 1)
-        x_bar = pack(xr).clone()
-        u_bar = pack(ur.to(xr.dtype)).clone()
+        # `pack` copies, so the in-place steps never write the caller's xr/ur
+        ipm0 = tuple(cold_warm(N, xr.shape[0], xr.dtype, dev)) if warm_start else None
+        return RtiState(pack(xr), pack(ur.to(xr.dtype)), ipm0)
+
+    if one_kernel:
+        step = make_whole_step(
+            ocp, vehicle, with_disturbance, jac_bf16=jac_bf16, num_iters=qp_iters
+        )
+
+        def update_one_kernel(state: RtiState, x0, xr, ur, f_dist=None):
+            dt = state.x_bar.dtype
+            x0 = as_input(x0, dt)
+            B = x0.shape[0]
+            warm = IpmWarm(*state.ipm) if warm_start else cold_warm(N, B, dt, dev)
+            fd_p = None
+            if with_disturbance:
+                if f_dist is None:
+                    fd_p = torch.zeros((N + 1, 3, B), dtype=dt, device=dev)
+                else:
+                    fd_p = pack(as_input(f_dist, dt))
+            xb, ub = state.x_bar, state.u_bar
+            eq = step(
+                xb, ub, pack(as_input(xr, dt)), pack(as_input(ur, dt)), fd_p,
+                pack(x0[:, None]), warm,
+                workspace=workspace(B, lambda B: step_whole.make_workspace(B, N, jac_bf16, dev)),
+            )
+            new_state = RtiState(xb, ub, tuple(warm) if warm_start else state.ipm)
+            u0, ok = first_control_and_health(ocp, xb, ub, eq, eq_tol)
+            return u0, new_state, RtiInfo(mu=warm.mu.clone(), eq_res=eq, ok=ok)
+
+        return RtiController(
+            reset_packed, update_one_kernel, ocp, vehicle, with_disturbance,
+            layout="kernel", device=dev,
+        )
+
+    linearize, sp_consts = make_linearizer(ocp, vehicle, with_disturbance, jac_bf16=jac_bf16)
+
+    def solve(qp, dx0_p, warm, xu_bar=None):
+        B = dx0_p.shape[-1]
+        return ipm_sparse(
+            qp, sp_consts, dx0_p, num_iters=qp_iters, warm=warm, lqr_start=False,
+            whole_kernel=whole_ipm, xu_bar=xu_bar,
+            workspace=workspace(B, lambda B: ipm_whole.make_workspace(B, N, dev))
+            if whole_ipm else None,
+        )
+
+    def inputs(state, x0, xr, ur, f_dist):
+        dt = state.x_bar.dtype
+        return (as_input(x0, dt), as_input(xr, dt), as_input(ur, dt),
+                as_input(f_dist, dt) if with_disturbance and f_dist is not None else None)
+
+    if packed_state:
+
+        def update_packed(state: RtiState, x0, xr, ur, f_dist=None):
+            x0, xr, ur, f_dist = inputs(state, x0, xr, ur, f_dist)
+            qp, dx0_p = linearize(state.x_bar, state.u_bar, xr, ur, f_dist, x0, packed_xu=True)
+            warm = IpmWarm(*state.ipm) if warm_start else None
+            xb, ub, mu, eq, new_warm = solve(qp, dx0_p, warm, xu_bar=(state.x_bar, state.u_bar))
+            new_state = RtiState(xb, ub, tuple(new_warm) if warm_start else state.ipm)
+            u0, ok = first_control_and_health(ocp, xb, ub, eq, eq_tol)
+            return u0, new_state, RtiInfo(mu=mu.clone(), eq_res=eq, ok=ok)
+
+        return RtiController(
+            reset_packed, update_packed, ocp, vehicle, with_disturbance,
+            layout="kernel", device=dev,
+        )
+
+    def reset_batch(xr, ur) -> RtiState:
+        xr = torch.as_tensor(xr, device=dev)
+        ur = torch.as_tensor(ur, device=dev).to(xr.dtype)
         ipm0 = None
         if warm_start:
-            ipm0 = tuple(cold_warm(N, xr.shape[0], xr.dtype, dev))
-        return RtiState(x_bar, u_bar, ipm0)
+            B, dt = xr.shape[0], xr.dtype
+            z = lambda *s: torch.zeros(s, dtype=dt, device=dev)
+            ipm0 = (z(B, N, 4), z(B, N, 4), z(B, N + 1, 3), z(B, N + 1, 3),
+                    torch.full((B,), -1.0, dtype=dt, device=dev))
+        return RtiState(xr, ur, ipm0)
 
-    def update(state: RtiState, x0, xr, ur, f_dist=None):
-        dt = state.x_bar.dtype
-        x0 = as_input(x0, dt)
-        B = x0.shape[0]
-        warm = IpmWarm(*state.ipm) if warm_start else cold_warm(N, B, dt, dev)
-        fd_p = None
-        if with_disturbance:
-            if f_dist is None:
-                fd_p = torch.zeros((N + 1, 3, B), dtype=dt, device=dev)
-            else:
-                fd_p = pack(as_input(f_dist, dt))
-        workspace = None
-        if dev.type == "cuda":
-            key = (B, dt)
-            if key not in workspaces:
-                workspaces[key] = make_workspace(B, N, jac_bf16, dev)
-            workspace = workspaces[key]
-        xb, ub = state.x_bar, state.u_bar
-        eq = step(
-            xb, ub, pack(as_input(xr, dt)), pack(as_input(ur, dt)), fd_p,
-            pack(x0[:, None]), warm, workspace=workspace,
+    def update_batch(state: RtiState, x0, xr, ur, f_dist=None):
+        x0, xr, ur, f_dist = inputs(state, x0, xr, ur, f_dist)
+        qp, dx0_p = linearize(state.x_bar, state.u_bar, xr, ur, f_dist, x0)
+        warm = None
+        if warm_start:
+            lul, luu, lxl, lxu, mu_c = state.ipm
+            # `pack` copies: the whole-IPM kernel updates the duals in place
+            warm = IpmWarm(pack(lul), pack(luu), pack(lxl), pack(lxu), mu_c.clone())
+        zx, zu, mu, eq, new_warm = solve(qp, dx0_p, warm)
+        ipm_new = state.ipm
+        if warm_start:
+            ipm_new = (
+                unpack(new_warm.lu_lo, (4,)), unpack(new_warm.lu_up, (4,)),
+                unpack(new_warm.lx_lo, (3,)), unpack(new_warm.lx_up, (3,)), new_warm.mu,
+            )
+        new_state = RtiState(
+            state.x_bar + unpack(zx, (zx.shape[1],)),
+            state.u_bar + unpack(zu, (zu.shape[1],)), ipm_new,
         )
-        new_state = RtiState(xb, ub, tuple(warm) if warm_start else state.ipm)
-        u0, ok = first_control_and_health(ocp, xb, ub, eq, eq_tol)
-        return u0, new_state, RtiInfo(mu=warm.mu.clone(), eq_res=eq, ok=ok)
+        u0, ok = first_control_and_health(
+            ocp, new_state.x_bar, new_state.u_bar, eq, eq_tol, layout="batch"
+        )
+        return u0, new_state, RtiInfo(mu=mu.clone(), eq_res=eq, ok=ok)
 
     return RtiController(
-        reset, update, ocp, vehicle, with_disturbance, layout="kernel",
+        reset_batch, update_batch, ocp, vehicle, with_disturbance, layout="batch",
         device=dev,
     )

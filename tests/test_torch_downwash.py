@@ -11,6 +11,16 @@ from ndp_nmpc_qd_tpu.models import downwash_mlp as j_mlp
 from ndp_nmpc_qd_tpu_torch.convert import mlp_from_numpy
 from ndp_nmpc_qd_tpu_torch.models import downwash_mlp as t_mlp
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread: the port's ops here are small, and the
+    suite's latency-bound JAX daemon tests need the other CPUs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ASSET = os.path.join(
     os.path.dirname(__file__), "..", "assets", "downwash_analytic_sn4.npz"
 )

@@ -15,6 +15,16 @@ from ndp_nmpc_qd_tpu_torch.models import quadrotor as tq
 from ndp_nmpc_qd_tpu_torch.ops import integrators as ti
 from ndp_nmpc_qd_tpu_torch.ops import quat as tquat
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread: the port's ops here are small, and the
+    suite's latency-bound JAX daemon tests need the other CPUs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 RTOL = 1e-12
 ATOL = 1e-14
 VEH = VehicleParams()

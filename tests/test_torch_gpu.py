@@ -1,4 +1,4 @@
-"""The fused control-step CUDA kernel vs its plain version, on the card.
+"""The CUDA kernels vs their plain versions, on the card.
 
 Marked `gpu`: it skips where no card is present (decided inside the test).
 Run on the card with `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
@@ -10,18 +10,37 @@ torch rounds each op, over 3 IPM iterations. bf16 payload: u0 atol 1e-3,
 iterates within 2^-8 of each tensor's largest entry, duals and mu rtol 2^-8
 at their own scale (one bf16 ulp of a Jacobian entry may flip). Both: `ok`
 identical.
+
+The two-kernel path's kernels (K3 linearization, K2 whole IPM with and
+without the folded axpy, K4/K5 one glue-fused IPM iteration) are held at
+the tolerances of `ndp_nmpc_qd_tpu_torch/testing.py`: iterates, directions,
+gains and the f32 payload atol 1e-4 of max(1, max|ref|); duals, their
+directions, mu and comp4 rtol 1e-3 at their own scale; eq_res and res2
+rtol 1e-3 above a floor 1e-6; the bf16 curvature payload within 2^-8 of
+its largest entry.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ndp_nmpc_qd_tpu_torch.ops.kernels import step_whole
+from ndp_nmpc_qd_tpu_torch import testing
+from ndp_nmpc_qd_tpu_torch.ops.kernels import ipm_whole, linearize, riccati_sparse, step_whole
 from ndp_nmpc_qd_tpu_torch.ops.layout import pack
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
-from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import whole_step_consts
+from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import ipm_consts, lin_consts, whole_step_consts
 from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import cold_warm
 from ndp_nmpc_qd_tpu_torch.solver.rti import first_control_and_health
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread: the port's ops here are small, and the
+    suite's latency-bound JAX daemon tests need the other CPUs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 BF16_ULP = 2.0 ** -8
 
@@ -80,3 +99,36 @@ def test_kernel_matches_plain_on_the_card(jac_bf16):
                 assert_at_own_scale(got, ref, 1e-3, msg)
         assert torch.equal(ok_k, ok_p), msg
     assert step_whole.control_step_whole.launches == before + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("jac_bf16", [False, True])
+def test_two_kernel_path_kernels_match_plain_on_the_card(jac_bf16):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    cfg = NdpNmpcConfig()
+    N, B = cfg.ocp.N_node, 300  # not a multiple of the 128-thread block
+    lc = lin_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16)
+    ic = ipm_consts(cfg.ocp, num_iters=3)
+    ins = testing.kernel_inputs(B, N, dev, seed=2)
+    counts = lambda: (linearize.linearize_stage_data.launches,
+                      ipm_whole.riccati_ipm_whole.launches,
+                      riccati_sparse.riccati_backward_glue.launches,
+                      riccati_sparse.riccati_forward_glue.launches)
+    before = counts()
+
+    errs, bad, qp = testing.check_linearize(ins, lc)
+    assert not bad, f"K3: {bad} out of tolerance: {testing.describe(errs)}"
+
+    ws = ipm_whole.make_workspace(B, N, dev)
+    for xu in (None, ins[:2]):
+        errs, bad = testing.check_ipm_whole(
+            qp, cold_warm(N, B, torch.float32, dev), ic, xu=xu, workspace=ws
+        )
+        assert not bad, f"K2 (fold {xu is not None}): {bad}: {testing.describe(errs)}"
+
+    errs, bad = testing.check_iter(testing.iter_args(qp, ic), ic)
+    assert not bad, f"K4/K5: {bad} out of tolerance: {testing.describe(errs)}"
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 6, before[2] + 1, before[3] + 1)

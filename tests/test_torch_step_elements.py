@@ -11,6 +11,7 @@ forward mode differs from `jax.linearize`.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ndp_nmpc_qd_tpu.ops.pallas import ipm_whole as j_ipm
@@ -22,6 +23,16 @@ from ndp_nmpc_qd_tpu_torch.ops.kernels import linearize as t_lin
 from ndp_nmpc_qd_tpu_torch.ops.kernels import riccati_sparse as t_rs
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
 from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import whole_step_consts
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread: the port's ops here are small, and the
+    suite's latency-bound JAX daemon tests need the other CPUs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 B = 16
 CONSTS = whole_step_consts(NdpNmpcConfig().ocp, NdpNmpcConfig().vehicle, True)

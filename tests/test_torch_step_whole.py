@@ -135,8 +135,8 @@ def test_whole_step_controller_matches_jax():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(packed_state=False), dict(whole_step=False), dict(backend="jax"),
-    dict(backend="pallas_packed"),
+    dict(whole_step=False, whole_ipm=False, lqr_start=True), dict(fused_lin=False),
+    dict(backend="jax"), dict(backend="pallas_packed"),
 ])
 def test_unported_combinations_raise(bad):
     cfg = PortConfig()

@@ -1,10 +1,11 @@
 """Where the PyTorch port's control step spends its device time.
 
-Runs the deployed fused control step of `chip_smoke.py`'s main path (bf16
-downwash forecast + whole-step RTI update, warm start, qp_iters=3, bf16
-Jacobians) at B=65536 on one CUDA card for 10 ticks under `torch.profiler`,
-and prints the device time per kernel name, the step's wall time per tick
-and the device's busy share of it.
+Runs each controller path of `chip_smoke.py` (bf16 downwash forecast + one
+RTI update, warm start, qp_iters=3, bf16 Jacobians): the one-kernel step
+(K1), the two-kernel path (K3 + K2) and the per-iteration path (K3, then
+K4 + K5 per IPM iteration), at B=65536 on one CUDA card for 10 ticks each
+under `torch.profiler`, and prints per path the device time per kernel
+name, the step's wall time per tick and the device's busy share of it.
 
     python3 tools/profile_torch_step.py
 """
@@ -22,20 +23,15 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import ASSET, CFG, deployed_controller, forecast, inputs  # noqa: E402
+from chip_smoke import ASSET, CFG, PATHS, controller, forecast, inputs  # noqa: E402
 from ndp_nmpc_qd_tpu_torch.models.downwash_mlp import load_npz  # noqa: E402
 
 B = 65536
 TICKS = 10
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit("no CUDA card")
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    mlp = load_npz(ASSET, device=dev)
-    ctl = deployed_controller(dev)
+def profile_path(path, mlp, dev, smi):
+    ctl = controller(dev, **PATHS[path][0])
     x0, xr, ur, other = inputs(B, dev, seed=0)
     state = ctl.reset(xr, ur)
 
@@ -59,16 +55,28 @@ def main():
             rows.append((ev.self_device_time_total / TICKS / 1e3, ev.count // TICKS, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    print(f"{path} path; card: {smi}; B={B}, N={CFG.ocp.N_node}, {TICKS} ticks")
+    print(f"step wall {wall_ms:.3f} ms/tick (host clock, synchronized, profiler on); "
+          f"device busy {busy:.3f} ms/tick ({100 * busy / wall_ms:.1f}%); "
+          f"{launches} device kernels a tick")
+    print(f"{'device ms/tick':>15} {'calls/tick':>10}  kernel")
+    for ms, calls, name in rows[:20]:
+        print(f"{ms:15.4f} {calls:10d}  {name[:100]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA card")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mlp = load_npz(ASSET, device=dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    print(f"card: {smi}; B={B}, N={CFG.ocp.N_node}, {TICKS} ticks")
-    print(f"step wall {wall_ms:.3f} ms/tick (host clock, synchronized, profiler on); "
-          f"device busy {busy:.3f} ms/tick ({100 * busy / wall_ms:.1f}%)")
-    print(f"{'device ms/tick':>15} {'calls/tick':>10}  kernel")
-    for ms, calls, name in rows[:25]:
-        print(f"{ms:15.4f} {calls:10d}  {name[:100]}")
+    for path in PATHS:
+        profile_path(path, mlp, dev, smi)
 
 
 if __name__ == "__main__":
