@@ -16,6 +16,10 @@ Phases, one line each; any failure exits non-zero before the last line:
       the folded axpy), K4 and K5 (one glue-fused IPM iteration), each on
       the same inputs as its plain version; and the one-kernel step against
       the two-kernel path (K3 + K2) over 3 chained ticks in f32.
+   c. K6 and K7 (one Newton sweep, `riccati_sweep_sparse`) in both ways the
+      IPM calls them: at the zero iterate with the clip and the hold
+      rollout (the clipped-LQR start), and at a jittered iterate with
+      sig/corr from `ipm_corr_terms`, no clip, no hold (the unfused glue).
 4. main path: bf16 downwash forecast + `reset` + `update` of the deployed
    controller (warm start, 3 QP iterations, bf16 Jacobians, one K1 launch a
    tick) at B=65536: health, mean step time over 30 queued ticks (CUDA
@@ -25,14 +29,27 @@ Phases, one line each; any failure exits non-zero before the last line:
    the same state, held against each other.
 6. per-iteration path: `whole_step=False, whole_ipm=False, lqr_start=False`
    (K3, then K4 + K5 per IPM iteration).
+   b. the same from the clipped-LQR start (`lqr_start=True`: K3, K6 + K7,
+      then K4 + K5 per IPM iteration).
 7. closed loop: 150-tick hover recovery at B=65536 through an RK4 plant that
    feels the same node-0 forecast force the controller was given.
 8. kernels: each kernel against its plain version once more at B=65536 on
    the state its path left (the deployed bf16 payload), then one JSON line,
    each hand-written kernel with its launches on its path, time, bound,
    plain-version time and error against it.
-Every path sets its kernels' launch counts to 0 just before it is driven
-and reads them just after. The last line is {"ok": true, "device": {...}}.
+9. missions through the port's CLI (`cli.run_mission`), 200 hold ticks and
+   16 s of the figure-eight (1000 ticks), recovery on:
+   a. `three_qd_ndp` (3 drones, the kernel controller cold@12 from the
+      clipped-LQR start), every tick's controls held against the JAX
+      mission golden (assets/mission_golden_three_qd_ndp.npz) at 1e-3;
+   b. `swarm --formation --drones 65536` (21845 three-drone NDP
+      formations), the deployed one-kernel configuration;
+   c. the same with the clipped-LQR per-iteration controller
+      (`--no-whole-step --no-whole-ipm`);
+   each with its launches per tick, health, RMSE and wall time per tick.
+Every path and mission sets its kernels' launch counts to 0 just before it
+is driven and reads them just after. The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -49,6 +66,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ndp_nmpc_qd_tpu_torch import cli
 from ndp_nmpc_qd_tpu_torch.models.downwash_mlp import load_npz, predict_downwash
 from ndp_nmpc_qd_tpu_torch.models.quadrotor import (
     body_rate_dynamics, hover_input, hover_state,
@@ -68,8 +86,9 @@ from ndp_nmpc_qd_tpu_torch.solver.rti import (
     RtiState, first_control_and_health, make_batched_rti_controller,
 )
 
-ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
-                     "downwash_analytic_sn4.npz")
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
+ASSET = os.path.join(ASSETS, "downwash_analytic_sn4.npz")
+GOLDEN = os.path.join(ASSETS, "mission_golden_three_qd_ndp.npz")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # f32 outside the tensor cores
 CFG = NdpNmpcConfig()
@@ -281,12 +300,16 @@ KERNELS = {
     "K2": ipm_whole.riccati_ipm_whole,
     "K4": riccati_sparse.riccati_backward_glue,
     "K5": riccati_sparse.riccati_forward_glue,
+    "K6": riccati_sparse.riccati_sweep_backward,
+    "K7": riccati_sparse.riccati_sweep_forward,
 }
 PATHS = {
     "one-kernel": (dict(whole_step=True), {"K1": 1}),
     "two-kernel": (dict(whole_step=False, whole_ipm=True, lqr_start=False), {"K3": 1, "K2": 1}),
     "per-iteration": (dict(whole_step=False, whole_ipm=False, lqr_start=False),
                       {"K3": 1, "K4": 3, "K5": 3}),
+    "per-iteration LQR": (dict(whole_step=False, whole_ipm=False, lqr_start=True),
+                          {"K3": 1, "K6": 1, "K7": 1, "K4": 3, "K5": 3}),
 }
 
 
@@ -358,6 +381,23 @@ def phase_compare_two_kernel(B, dev, seed, mlp):
         worst = {n: max(worst.get(n, v), v) for n, v in e.items() if isinstance(v, float)}
     print(f"two-kernel (K3 + K2) vs one-kernel (K1) path (f32, B={B}, 3 chained ticks, worst): "
           + ", ".join(f"{n} {worst[n]:.3g}" for n in ("u0", "xb", "ub", "duals_scaled", "eq")))
+
+
+def phase_compare_sweep(B, dev, seed):
+    """K6 and K7 against their plain versions on the same inputs, f32 and
+    bf16 payloads, in both ways the IPM calls them (`testing.sweep_args`)."""
+    ic = ipm_consts(CFG.ocp, num_iters=3)
+    for jac_bf16 in (False, True):
+        tag = "bf16" if jac_bf16 else "f32"
+        lc = lin_consts(CFG.ocp, CFG.vehicle, True, jac_bf16=jac_bf16)
+        qp = linearize.linearize_stage_data_plain(*testing.kernel_inputs(B, N, dev, seed), **lc)
+        for call in ("lqr_start", "unfused_glue"):
+            args, hold = testing.sweep_args(qp, ic, call)
+            errs, bad = testing.check_sweep(args, hold, ic)
+            print(f"kernel vs plain (K6 + K7, {call}, {tag} payload, B={B}): "
+                  f"{testing.describe(errs)}")
+            check(not bad, f"K6 + K7 vs plain ({call}, {tag} payload, B={B}): "
+                  f"{', '.join(bad)} out of tolerance")
 
 
 def phase_path(B, dev, seed, mlp, path="one-kernel", warm_ticks=3, timed_ticks=30):
@@ -603,6 +643,100 @@ def phase_kernels_two_kernel(two, per, mlp):
     return [k3, k2, k4, k5]
 
 
+def phase_kernels_sweep(lqr, mlp):
+    """K6 and K7 against their plain versions at B=65536 on the state the
+    clipped-LQR path left (bf16 payload), as its start calls them (zero
+    iterate, clip, hold rollout), then timed and bounded. Returns their
+    entries of the kernels line."""
+    dev = lqr["x0"].device
+    B = lqr["x0"].shape[0]
+    lc = lin_consts(CFG.ocp, CFG.vehicle, True, jac_bf16=True)
+    ic = ipm_consts(CFG.ocp, num_iters=3)
+    st = lqr["state"]
+    f = forecast(mlp, lqr["other"], lqr["xr"], lqr["x0"], torch.bfloat16)
+    qp = linearize.linearize_stage_data_plain(
+        st.x_bar, st.u_bar, pack(lqr["xr"]), pack(lqr["ur"]), pack(f), pack(lqr["x0"][:, None]),
+        **lc)
+    args, hold = testing.sweep_args(qp, ic, "lqr_start")
+    errs, bad = testing.check_sweep(args, hold, ic)
+    print(f"kernel vs plain (K6 + K7, the clipped-LQR start, bf16 payload, B={B}, the LQR "
+          f"path's state): {testing.describe(errs)}")
+    check(not bad, f"K6 + K7 vs plain (B={B}): {', '.join(bad)} out of tolerance")
+    kw6 = {k: ic[k] for k in ("h", "diag6_stage", "diag6_term", "rdiag_stage")}
+    kw7 = dict(h=ic["h"], with_hold=True)
+    bwd = args[:13]
+    plain6 = riccati_sparse.riccati_sweep_backward_plain
+    plain7 = riccati_sparse.riccati_sweep_forward_plain
+    K, kf, rh = plain6(*bwd, **kw6)
+    fwd = (args[3], args[4], args[5], rh, K, kf, args[13], args[14], args[15])
+    k6 = entry(
+        "riccati_sweep_backward", "riccati_sweep.cu", "riccati_sparse.py:926",
+        lqr["launches"]["K6"], errs["max_abs_K6"], cuda_ms(lambda: KERNELS["K6"](*bwd, **kw6), 10),
+        cuda_ms(lambda: plain6(*bwd, **kw6), 1), bound_of(B, bwd, (K, kf, rh), plain6, bwd, kw6), B,
+    )
+    k7 = entry(
+        "riccati_sweep_forward", "riccati_sweep.cu", "riccati_sparse.py:994",
+        lqr["launches"]["K7"], errs["max_abs_K7"], cuda_ms(lambda: KERNELS["K7"](*fwd, **kw7), 10),
+        cuda_ms(lambda: plain7(*fwd, **kw7), 1),
+        bound_of(B, fwd, plain7(*fwd, **kw7), plain7, fwd, kw7), B,
+    )
+    return [k6, k7]
+
+
+# The missions of phase 9: CLI arguments and kernel launches per tick.
+MISSIONS = {
+    "three_qd_ndp": (["three_qd_ndp"], {"K3": 1, "K6": 1, "K7": 1, "K4": 12, "K5": 12}),
+    "swarm, deployed": (["swarm", "--formation", "--drones", "65536"], {"K1": 1}),
+    "swarm, LQR start": (["swarm", "--formation", "--drones", "65536", "--no-whole-step",
+                          "--no-whole-ipm"], {"K3": 1, "K6": 1, "K7": 1, "K4": 3, "K5": 3}),
+}
+
+
+def phase_mission(name, extra=(), n_ticks=None):
+    """Fly one mission through `cli.run_mission`, every kernel's count set
+    to 0 just before and read just after; check health, the launches per
+    tick and, for three_qd_ndp, every tick's controls against the JAX
+    golden; for the swarms the spread of the leaders' RMSE across groups
+    (they fly the same mission at different anchors)."""
+    argv, per_tick = MISSIONS[name]
+    args = cli.make_parser().parse_args(["mission", *argv, *extra])
+    golden = name == "three_qd_ndp"
+    for fn in KERNELS.values():
+        fn.launches = 0
+    result, run = cli.run_mission(args, record_traces=golden, n_ticks=n_ticks)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    T = result["ticks"]
+    m = run["metrics"]
+    print(f"mission {name}: {json.dumps(result)}")
+    line = (f"mission {name} ({result['n_drones']} drones, {T} ticks): "
+            f"{result['ms_per_tick']:.3f} ms a tick (wall, synchronised); ok "
+            f"{int(m.ok.sum())}/{m.ok.numel()}; recovered {result['recovered']}; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items() if v or k in per_tick))
+    check(bool(m.ok.all()), f"mission {name}: {int((~m.ok).sum())} drones not ok at the end")
+    if golden:
+        with np.load(GOLDEN) as g:
+            u0_g, pos_g, form_g = g["u0"][:T], g["pos_rmse"], g["form_rmse"]
+        u0 = run["traces"][1].double().cpu().numpy()
+        dev_u0 = float(np.abs(u0 - u0_g).max())
+        line += (f"; max |u0 - u0_jax| {dev_u0:.3g} over {T} ticks and 3 drones (bound 1e-3); "
+                 f"pos RMSE {result['pos_rmse']} (JAX {[round(float(v), 5) for v in pos_g]}), form "
+                 f"RMSE {result['form_rmse']} (JAX {[round(float(v), 5) for v in form_g]})")
+        check(dev_u0 < 1e-3, f"mission {name}: control deviation {dev_u0} from the JAX golden")
+    else:
+        lead = m.pos_rmse.reshape(-1, 3)[:, 0]
+        spread = float(lead.max() - lead.min())
+        line += (f"; pos RMSE leaders {result['pos_rmse_leaders']}, followers "
+                 f"{result['pos_rmse_followers']}; leader RMSE spread across "
+                 f"{lead.numel()} groups {spread:.3g} m")
+        check(spread < 1e-3, f"mission {name}: leader RMSE spread {spread} m across groups")
+    print(line)
+    if args.cpu:
+        return result
+    want = {k: per_tick.get(k, 0) * T for k in KERNELS}
+    check(launches == want, f"mission {name} launched {launches}, want {want}")
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--small", action="store_true",
@@ -623,19 +757,28 @@ def main():
             two = phase_path(8, dev, args.seed, mlp, "two-kernel", 1, 2)
             phase_agree(two, dev, mlp)
             phase_path(8, dev, args.seed, mlp, "per-iteration", 1, 2)
+            phase_compare_sweep(8, dev, args.seed)
+            phase_path(8, dev, args.seed, mlp, "per-iteration LQR", 1, 2)
             phase_closed_loop(8, dev, args.seed, mlp)
+            phase_mission("three_qd_ndp", ("--cpu",), n_ticks=3)
             print("rehearsal done: no kernel ran, so no result is printed")
             sys.exit(2)
         phase_build()
         compare = phase_compare(4096, dev, args.seed, mlp)
         phase_compare_two_kernel(4096, dev, args.seed, mlp)
+        phase_compare_sweep(4096, dev, args.seed)
         main_ = phase_path(65536, dev, args.seed, mlp)
         two = phase_path(65536, dev, args.seed, mlp, "two-kernel")
         phase_agree(two, dev, mlp)
         per = phase_path(65536, dev, args.seed, mlp, "per-iteration")
+        lqr = phase_path(65536, dev, args.seed, mlp, "per-iteration LQR")
         phase_closed_loop(65536, dev, args.seed, mlp)
         kernels = [phase_kernels(main_, compare, mlp)]
         kernels += phase_kernels_two_kernel(two, per, mlp)
+        kernels += phase_kernels_sweep(lqr, mlp)
+        del main_, two, per, lqr
+        for name in MISSIONS:
+            phase_mission(name)
         print(json.dumps({"kernels": kernels}))
     except Fail as e:
         print(f"FAILED: {e}", file=sys.stderr)

@@ -6,7 +6,18 @@ with a plain PyTorch version beside it (`ops/kernels/`). The port imports
 nothing of the JAX package.
 """
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def const(values: tuple, dtype, device) -> torch.Tensor:
+    """A constant tensor of host values (a tuple, nested for more
+    dimensions), made once per dtype and device. Made anew every tick, it
+    would be copied to the card every tick, and that copy waits for the
+    work queued before it. Never write into it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def resolve_device(device=None) -> torch.device:

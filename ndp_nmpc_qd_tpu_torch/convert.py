@@ -1,7 +1,9 @@
-"""Carry weights and controller state over from the JAX package.
+"""Carry weights, controller state, trajectories and episode state over
+from the JAX package.
 
-Both take numpy arrays, so the port itself never imports JAX: the caller
-hands over `np.asarray` of the JAX objects.
+Every function takes numpy arrays (or objects whose fields are numpy
+arrays, named as the JAX package names them), so the port itself never
+imports JAX: the caller hands over `np.asarray` of the JAX objects.
 """
 
 from __future__ import annotations
@@ -11,7 +13,12 @@ import torch
 
 from . import resolve_device
 from .models.downwash_mlp import from_numpy
+from .estimators.filters import DifferentiatorState
+from .estimators.hover_throttle import HoverThrottleState
+from .sim.closed_loop import EpisodeState
+from .sim.plant import PlantState
 from .solver.rti import RtiState
+from .traj.polyopt import PiecewisePoly
 
 
 # The JAX `MlpParams` (weights (out, in), biases (out,), as numpy) as a
@@ -44,3 +51,43 @@ def rti_batch_state_from_numpy(x_bar, u_bar, ipm, *, device=None) -> RtiState:
     dev = resolve_device(device)
     t = lambda a: torch.tensor(np.ascontiguousarray(np.asarray(a)), device=dev)
     return RtiState(t(x_bar), t(u_bar), None if ipm is None else tuple(t(a) for a in ipm))
+
+
+def _tensor(a, dev):
+    return torch.tensor(np.ascontiguousarray(np.asarray(a)), device=dev)
+
+
+def traj_from_numpy(traj, *, device=None) -> PiecewisePoly:
+    """A JAX `PiecewisePoly` (numpy fields, any dtype; stacked or not) as
+    the port's, in the same dtype."""
+    dev = resolve_device(device)
+    return PiecewisePoly(*(_tensor(getattr(traj, f), dev) for f in PiecewisePoly._fields))
+
+
+def episode_state_from_numpy(st, *, kernel_layout: bool = False, device=None) -> EpisodeState:
+    """A JAX `EpisodeState` as the port's: the plant, the controller state
+    (kernel layout, lane padding dropped, with `kernel_layout=True`; else
+    batch-first), the estimator, the filtered offsets, the previous and
+    hold horizons, the tick and tracking count (host ints) and the
+    accumulators."""
+    dev = resolve_device(device)
+    t = lambda a: _tensor(a, dev)
+    D = np.asarray(st.plant.x).shape[0]
+    rti = st.rti
+    if kernel_layout:
+        rti = rti_state_from_numpy(rti.x_bar, rti.u_bar, rti.ipm, D, device=dev)
+    else:
+        rti = rti_batch_state_from_numpy(rti.x_bar, rti.u_bar, rti.ipm, device=dev)
+    return EpisodeState(
+        plant=PlantState(t(st.plant.x), t(st.plant.w_act), t(st.plant.c_act)),
+        rti=rti,
+        est=HoverThrottleState(t(st.est.x), t(st.est.P),
+                               DifferentiatorState(t(st.est.diff.x_prev),
+                                                   t(st.est.diff.xdot_prev))),
+        lpf_offset=t(st.lpf_offset),
+        prev_ref_x=t(st.prev_ref_x), prev_ref_u=t(st.prev_ref_u),
+        hold_xr=t(st.hold_xr), hold_ur=t(st.hold_ur),
+        tick=int(np.asarray(st.tick)), n_track=int(np.asarray(st.n_track)),
+        pos_err2=t(st.pos_err2), yaw_err2=t(st.yaw_err2), form_err2=t(st.form_err2),
+        ok_all=t(st.ok_all), recovered=t(np.asarray(st.recovered, np.int64)),
+    )

@@ -1,13 +1,15 @@
 // Device functions shared by the port's CUDA kernels (step_whole.cu,
-// linearize.cu, ipm_whole.cu, riccati_iter.cu), one scenario per thread.
+// linearize.cu, ipm_whole.cu, riccati_iter.cu, riccati_sweep.cu), one
+// scenario per thread.
 // Each function is named after its JAX counterpart:
 //   lin_stage_terms / lin_terminal_terms  ops/pallas/linearize.py:122,183
 //   linearize_scenario                    ops/pallas/linearize.py:_lin_kernel
 //   glue_pair, terminal_init_core, riccati_stage_core, dyn_step,
 //   bound_steps                           ops/pallas/riccati_sparse.py:74-437
-//   backward_sweep / forward_pass         ops/pallas/riccati_sparse.py:
-//                                         _backward_kernel_glue,
-//                                         _forward_kernel_glue
+//   backward_sweep (GlueRows / GivenRows) ops/pallas/riccati_sparse.py:
+//                                         _backward_kernel_glue /
+//                                         _backward_kernel
+//   rollout, forward_pass                 _forward_kernel, _forward_kernel_glue
 //   chol4, chol4_solve                    ops/pallas/riccati.py:101,122
 //   ipm_whole                             ops/pallas/ipm_whole.py:82
 // and follows the same operation order as the plain PyTorch versions in
@@ -718,27 +720,60 @@ struct Dirs {
   View<float> sul, suu, lul, luu, sxl, sxu, lxl, lxu;
 };
 
-// ---- one IPM iteration (ops/pallas/riccati_sparse.py) ----
+// ---- one Riccati sweep (ops/pallas/riccati_sparse.py) ----
+
+// Where the backward sweep takes the box rows' Hessian additions and
+// gradient corrections (sig, corr) from. Each source answers u_row(k, l, v)
+// and x_row(k, i, v) for the row's current value v, so both sweeps below run
+// the same terminal_init_core / riccati_stage_core code.
+
+// The slack elimination from the slacks, duals and barrier weight
+// (`_backward_kernel_glue`: glue_pair in the sweep).
+struct GlueRows {
+  View<float> lub, uub, lxb, uxb;  // the payload's box residuals
+  Bounds bd;
+  float mu;
+  __device__ void u_row(int k, int l, float v, float& sig, float& corr) const {
+    const Glue g = glue_pair(v, lub(k, l), uub(k, l), bd.sul(k, l), bd.suu(k, l), bd.lul(k, l),
+                             bd.luu(k, l), mu);
+    sig = g.sig;
+    corr = g.corr;
+  }
+  __device__ void x_row(int k, int i, float v, float& sig, float& corr) const {
+    const Glue g = glue_pair(v, lxb(k, i), uxb(k, i), bd.sxl(k, i), bd.sxu(k, i), bd.lxl(k, i),
+                             bd.lxu(k, i), mu);
+    sig = g.sig;
+    corr = g.corr;
+  }
+};
+
+// Given tensors sig_u/corr_u (N, 4), sig_x/corr_x (N+1, 3) (`_backward_kernel`
+// of `riccati_sweep_sparse`, whose caller forms them).
+struct GivenRows {
+  View<float> sig_u, corr_u, sig_x, corr_x;
+  __device__ void u_row(int k, int l, float, float& sig, float& corr) const {
+    sig = sig_u(k, l);
+    corr = corr_u(k, l);
+  }
+  __device__ void x_row(int k, int i, float, float& sig, float& corr) const {
+    sig = sig_x(k, i);
+    corr = corr_x(k, i);
+  }
+};
 
 // Backward Riccati sweep at the iterate (zx, zu), stages N-1..0, with the
-// slack elimination of the box rows (`_backward_kernel_glue`). Writes the
-// gains K (N, 40), kf (N, 4) and the defects rh (N, 10); returns the sum of
-// rh^2 over the stages, in loop order.
-template <typename JT>
+// box rows' terms from `rows`. Writes the gains K (N, 40), kf (N, 4) and the
+// defects rh (N, 10); returns the sum of rh^2 over the stages, in loop order.
+template <typename JT, typename Rows>
 __device__ inline float backward_sweep(const Payload<JT>& q, View<float> zx, View<float> zu,
-                                       const Bounds& bd, float mu, View<float> Ko, View<float> kfo,
+                                       const Rows& rows, View<float> Ko, View<float> kfo,
                                        View<float> rho, const StepConsts& c) {
   const int N = c.n_stages;
   float P[NX * NX], p[NX];
   {
     float zxT[NX], hqT[16], gxT[NX], sigT[3], corrT[3];
     for (int i = 0; i < NX; ++i) zxT[i] = zx(N, i);
-    for (int i = 0; i < 3; ++i) {
-      const Glue g = glue_pair(zxT[3 + i], q.lxb(N, i), q.uxb(N, i), bd.sxl(N, i), bd.sxu(N, i),
-                               bd.lxl(N, i), bd.lxu(N, i), mu);
-      sigT[i] = g.sig;
-      corrT[i] = g.corr;
-    }
+    for (int i = 0; i < 3; ++i) rows.x_row(N, i, zxT[3 + i], sigT[i], corrT[i]);
     for (int j = 0; j < 16; ++j) hqT[j] = ldf(q.hq(N, j));
     for (int i = 0; i < NX; ++i) gxT[i] = q.gx(N, i);
     terminal_init_core(hqT, gxT, zxT, sigT, corrT, c, P, p);
@@ -761,18 +796,8 @@ __device__ inline float backward_sweep(const Payload<JT>& q, View<float> zx, Vie
       zuk[l] = zu(k, l);
     }
     load_blocks(q, k, m);
-    for (int l = 0; l < NU; ++l) {
-      const Glue g = glue_pair(zuk[l], q.lub(k, l), q.uub(k, l), bd.sul(k, l), bd.suu(k, l),
-                               bd.lul(k, l), bd.luu(k, l), mu);
-      sig_u[l] = g.sig;
-      corr_u[l] = g.corr;
-    }
-    for (int i = 0; i < 3; ++i) {
-      const Glue g = glue_pair(zxk[3 + i], q.lxb(k, i), q.uxb(k, i), bd.sxl(k, i), bd.sxu(k, i),
-                               bd.lxl(k, i), bd.lxu(k, i), mu);
-      sig_x[i] = g.sig;
-      corr_x[i] = g.corr;
-    }
+    for (int l = 0; l < NU; ++l) rows.u_row(k, l, zuk[l], sig_u[l], corr_u[l]);
+    for (int i = 0; i < 3; ++i) rows.x_row(k, i, zxk[3 + i], sig_x[i], corr_x[i]);
     riccati_stage_core(P, p, Hq, gx, gu, m, rk, zxk, zx1, zuk, sig_u, sig_x, corr_u, corr_x, c,
                        K, kf, rh);
     for (int l = 0; l < NU; ++l) {
@@ -789,6 +814,42 @@ __device__ inline float backward_sweep(const Payload<JT>& q, View<float> zx, Vie
   return r2;
 }
 
+// The sweep with the slack elimination of the box rows (`_backward_kernel_glue`).
+template <typename JT>
+__device__ inline float backward_sweep(const Payload<JT>& q, View<float> zx, View<float> zu,
+                                       const Bounds& bd, float mu, View<float> Ko, View<float> kfo,
+                                       View<float> rho, const StepConsts& c) {
+  return backward_sweep(q, zx, zu, GlueRows{q.lub, q.uub, q.lxb, q.uxb, bd, mu}, Ko, kfo, rho, c);
+}
+
+// The forward rollout of a sweep from dx (clobbered): for k = 0..N-1,
+// du = K_k dx + kf_k, then visit(k, dx, du) (which may change du before it
+// is used, and stores what its caller wants), then after(k, m, rk) with
+// stage k's blocks and defect loaded, then dx <- A_k dx + B_k du + rh_k.
+// dx holds node N at the end.
+template <typename JT, typename Visit, typename After>
+__device__ inline void rollout(const Payload<JT>& q, View<float> Ko, View<float> kfo,
+                               View<float> rho, float* dx, const StepConsts& c, Visit&& visit,
+                               After&& after) {
+  const int N = c.n_stages;
+  Blocks m;
+  float rk[NX], nxt[NX];
+  for (int k = 0; k < N; ++k) {
+    float du[NU];
+    for (int l = 0; l < NU; ++l) {
+      float sdu = Ko(k, l * NX) * dx[0];
+      for (int j = 1; j < NX; ++j) sdu = sdu + Ko(k, l * NX + j) * dx[j];
+      du[l] = sdu + kfo(k, l);
+    }
+    visit(k, dx, du);
+    load_blocks(q, k, m);
+    for (int i = 0; i < NX; ++i) rk[i] = rho(k, i);
+    after(k, m, rk);
+    dyn_step(m, rk, c.h, dx, du, nxt);
+    for (int i = 0; i < NX; ++i) dx[i] = nxt[i];
+  }
+}
+
 // Forward rollout from dx (the dx0 residual; clobbered) with the gains of
 // `backward_sweep`, plus the direction recovery, fraction-to-boundary ratios
 // and complementarity partials of every box row (`_forward_kernel_glue`).
@@ -803,9 +864,9 @@ __device__ inline StepAcc forward_pass(const Payload<JT>& q, View<float> Ko, Vie
   const int N = c.n_stages;
   const bool store = dirs.sul.p != nullptr;
   StepAcc acc{2.0f, 2.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  auto x_rows = [&](int k) {
+  auto x_rows = [&](int k, const float* x) {
     for (int i = 0; i < 3; ++i) {
-      const Steps st = acc.row(zx(k, 3 + i), dx[3 + i], q.lxb(k, i), q.uxb(k, i), bd.sxl(k, i),
+      const Steps st = acc.row(zx(k, 3 + i), x[3 + i], q.lxb(k, i), q.uxb(k, i), bd.sxl(k, i),
                                bd.sxu(k, i), bd.lxl(k, i), bd.lxu(k, i), mu, c.tau);
       if (store) {
         dirs.sxl(k, i) = st.ds_lo;
@@ -815,35 +876,26 @@ __device__ inline StepAcc forward_pass(const Payload<JT>& q, View<float> Ko, Vie
       }
     }
   };
-  Blocks m;
-  float rk[NX], nxt[NX];
-  for (int k = 0; k < N; ++k) {
-    float du[NU];
-    for (int l = 0; l < NU; ++l) {
-      float sdu = Ko(k, l * NX) * dx[0];
-      for (int j = 1; j < NX; ++j) sdu = sdu + Ko(k, l * NX + j) * dx[j];
-      du[l] = sdu + kfo(k, l);
-    }
-    for (int i = 0; i < NX; ++i) dxo(k, i) = dx[i];
-    for (int l = 0; l < NU; ++l) duo(k, l) = du[l];
-    for (int l = 0; l < NU; ++l) {
-      const Steps st = acc.row(zu(k, l), du[l], q.lub(k, l), q.uub(k, l), bd.sul(k, l),
-                               bd.suu(k, l), bd.lul(k, l), bd.luu(k, l), mu, c.tau);
-      if (store) {
-        dirs.sul(k, l) = st.ds_lo;
-        dirs.suu(k, l) = st.ds_up;
-        dirs.lul(k, l) = st.dl_lo;
-        dirs.luu(k, l) = st.dl_up;
-      }
-    }
-    x_rows(k);
-    load_blocks(q, k, m);
-    for (int i = 0; i < NX; ++i) rk[i] = rho(k, i);
-    dyn_step(m, rk, c.h, dx, du, nxt);
-    for (int i = 0; i < NX; ++i) dx[i] = nxt[i];
-  }
+  rollout(
+      q, Ko, kfo, rho, dx, c,
+      [&](int k, const float* x, float* du) {
+        for (int i = 0; i < NX; ++i) dxo(k, i) = x[i];
+        for (int l = 0; l < NU; ++l) duo(k, l) = du[l];
+        for (int l = 0; l < NU; ++l) {
+          const Steps st = acc.row(zu(k, l), du[l], q.lub(k, l), q.uub(k, l), bd.sul(k, l),
+                                   bd.suu(k, l), bd.lul(k, l), bd.luu(k, l), mu, c.tau);
+          if (store) {
+            dirs.sul(k, l) = st.ds_lo;
+            dirs.suu(k, l) = st.ds_up;
+            dirs.lul(k, l) = st.dl_lo;
+            dirs.luu(k, l) = st.dl_up;
+          }
+        }
+        x_rows(k, x);
+      },
+      [](int, const Blocks&, const float*) {});
   for (int i = 0; i < NX; ++i) dxo(N, i) = dx[i];
-  x_rows(N);
+  x_rows(N, dx);
   return acc;
 }
 

@@ -36,6 +36,7 @@ from .riccati_sparse import (
     dyn_step,
     forward_pass,
     glue_pair,
+    glue_rows,
     load_blocks,
 )
 
@@ -120,7 +121,7 @@ def ipm_whole(
     bd = (sul, suu, sxl, sxu, lul, luu, lxl, lxu)
     for _ in range(num_iters):
         K, kf, rh, r2 = backward_sweep(
-            qp, blocks, zx, zu, bd, mu,
+            qp, blocks, zx, zu, glue_rows(qp, bd, mu),
             h=h, diag6_stage=diag6_stage, diag6_term=diag6_term, rdiag_stage=rdiag_stage,
         )
         dx0_res = [dx0[i] - zx[0][i] for i in range(NX)]

@@ -1,16 +1,23 @@
 """Structure-sparse Riccati sweeps: CUDA kernel wrappers and plain versions.
 
-Port of `ndp_nmpc_qd_tpu/ops/pallas/riccati_sparse.py` (`riccati_iter_fused`
-and its per-stage helpers `_bt_dot`, `_glue_pair`, `_terminal_init_core`,
-`_riccati_stage_core`, `_dyn_step`, `_ratio`, `_bound_steps`) and of the
-4x4 Cholesky helpers of `ops/pallas/riccati.py` (`_chol4`, `_chol4_solve`).
+Port of `ndp_nmpc_qd_tpu/ops/pallas/riccati_sparse.py` (`riccati_iter_fused`,
+`riccati_sweep_sparse` and their per-stage helpers `_bt_dot`, `_glue_pair`,
+`_terminal_init_core`, `_riccati_stage_core`, `_dyn_step`, `_ratio`,
+`_bound_steps`) and of the 4x4 Cholesky helpers of `ops/pallas/riccati.py`
+(`_chol4`, `_chol4_solve`).
 
 - `riccati_iter_fused` is one glue-fused IPM iteration in two launches:
-  `riccati_backward_glue` (the TPU's `_backward_kernel_glue`) and
-  `riccati_forward_glue` (`_forward_kernel_glue`). For CUDA tensors each
-  launches its hand-written kernel (`csrc/riccati_iter.cu`, built at first
-  use) or raises, and counts its launches in `.launches`; for CPU tensors
-  each runs its plain version.
+  `riccati_backward_glue` (K4, the TPU's `_backward_kernel_glue`) and
+  `riccati_forward_glue` (K5, `_forward_kernel_glue`), CUDA in
+  `csrc/riccati_iter.cu`.
+- `riccati_sweep_sparse` is one Newton sweep with the box rows' terms given
+  (the clipped-LQR start and the unfused glue of the IPM) in two launches:
+  `riccati_sweep_backward` (K6, `_backward_kernel`) and
+  `riccati_sweep_forward` (K7, `_forward_kernel`: optional clip and
+  zero-control hold rollout), CUDA in `csrc/riccati_sweep.cu`.
+- For CUDA tensors each wrapper launches its hand-written kernel (built at
+  first use) or raises, and counts its launches in `.launches`; for CPU
+  tensors each runs its plain version.
 - The helpers take (B,) tensors or nested lists (or tensors) of them, one
   per matrix element, as the Pallas helpers take one (SUB, 128) tile per
   element; the CUDA device functions of the same names (`csrc/ndp.cuh`) do
@@ -326,56 +333,61 @@ def bound_steps(d, r_lo, r_up, rc_lo, rc_up, s_lo, s_up, l_lo, l_up, tau):
 # ---- one IPM iteration: the sweeps over all stages ----
 
 
+def glue_rows(qp: StagePayload, bd, mu):
+    """The box rows' (sig, corr) by the slack elimination (`glue_pair`) of
+    the slacks and duals bd = (su_lo, su_up, sx_lo, sx_up, lu_lo, lu_up,
+    lx_lo, lx_up) at barrier weight mu, as `_backward_kernel_glue` forms
+    them: (u_rows(k, zu_k), x_rows(k, zx_k)), each returning (sig, corr)
+    lists."""
+    sul, suu, sxl, sxu, lul, luu, lxl, lxu = bd
+
+    def u_rows(k, zu):
+        terms = [glue_pair(zu[l], qp.lub[k][l], qp.uub[k][l], sul[k][l], suu[k][l],
+                           lul[k][l], luu[k][l], mu)[:2] for l in range(NU)]
+        return [t[0] for t in terms], [t[1] for t in terms]
+
+    def x_rows(k, zx):
+        terms = [glue_pair(zx[3 + i], qp.lxb[k][i], qp.uxb[k][i], sxl[k][i], sxu[k][i],
+                           lxl[k][i], lxu[k][i], mu)[:2] for i in range(3)]
+        return [t[0] for t in terms], [t[1] for t in terms]
+
+    return u_rows, x_rows
+
+
+def given_rows(sig_u, sig_x, corr_u, corr_x):
+    """The box rows' (sig, corr) given as (N, 4, B) / (N+1, 3, B) tensors
+    (`_backward_kernel`): the same (u_rows, x_rows) pair as `glue_rows`."""
+    return (lambda k, zu: (sig_u[k], corr_u[k])), (lambda k, zx: (sig_x[k], corr_x[k]))
+
+
 def backward_sweep(
-    qp: StagePayload, blocks, zx, zu, bd, mu,
+    qp: StagePayload, blocks, zx, zu, rows,
     *, h, diag6_stage, diag6_term, rdiag_stage,
 ):
     """Backward Riccati sweep at the iterate (zx, zu), stages N-1..0, with
-    the slack elimination of the box rows (`_backward_kernel_glue`).
-
-    bd = (su_lo, su_up, sx_lo, sx_up, lu_lo, lu_up, lx_lo, lx_up), the box
-    rows' slacks and duals; blocks[k] = `load_blocks` of stage k. Returns
+    the box rows' terms from rows = (u_rows, x_rows) (`glue_rows` or
+    `given_rows`); blocks[k] = `load_blocks` of stage k. Returns
     (K [k][l][j], kf [k][l], rh [k][i], r2), r2 the sum of rh^2 over the
     stages in loop order."""
-    sul, suu, sxl, sxu, lul, luu, lxl, lxu = bd
+    u_rows, x_rows = rows
     N = len(blocks)
-    sigT, corrT = [], []
-    for i in range(3):
-        sg, co, *_ = glue_pair(
-            zx[N][3 + i], qp.lxb[N][i], qp.uxb[N][i],
-            sxl[N][i], sxu[N][i], lxl[N][i], lxu[N][i], mu,
-        )
-        sigT.append(sg)
-        corrT.append(co)
+    sigT, corrT = x_rows(N, zx[N])
     P, p = terminal_init_core(qp.hq[N], qp.gx[N], zx[N], sigT, corrT, diag6_term=diag6_term)
     K = [None] * N
     kf = [None] * N
     rh = [None] * N
-    r2 = torch.zeros_like(mu)
+    r2 = None
     for k in reversed(range(N)):
         Hq = [[qp.hq[k][i * 4 + j] for j in range(4)] for i in range(4)]
-        sig_u, corr_u = [], []
-        for l in range(NU):
-            sg, co, *_ = glue_pair(
-                zu[k][l], qp.lub[k][l], qp.uub[k][l],
-                sul[k][l], suu[k][l], lul[k][l], luu[k][l], mu,
-            )
-            sig_u.append(sg)
-            corr_u.append(co)
-        sig_x, corr_x = [], []
-        for i in range(3):
-            sg, co, *_ = glue_pair(
-                zx[k][3 + i], qp.lxb[k][i], qp.uxb[k][i],
-                sxl[k][i], sxu[k][i], lxl[k][i], lxu[k][i], mu,
-            )
-            sig_x.append(sg)
-            corr_x.append(co)
+        sig_u, corr_u = u_rows(k, zu[k])
+        sig_x, corr_x = x_rows(k, zx[k])
         K[k], kf[k], rh[k], P, p = riccati_stage_core(
             P, p, Hq, qp.gx[k], qp.gu[k], *blocks[k], qp.r[k],
             zx[k], zx[k + 1], zu[k], sig_u, sig_x, corr_u, corr_x,
             h=h, diag6_stage=diag6_stage, rdiag_stage=rdiag_stage,
         )
-        r2 = r2 + tsum(rh[k][i] * rh[k][i] for i in range(NX))
+        sq = tsum(rh[k][i] * rh[k][i] for i in range(NX))
+        r2 = sq if r2 is None else r2 + sq
     return K, kf, rh, r2
 
 
@@ -458,7 +470,7 @@ def riccati_backward_glue_plain(
     qp = StagePayload(hq.to(dt), gx, gu, None, None, None, r, lub, uub, lxb, uxb, None)
     bd = (su_lo, su_up, sx_lo, sx_up, lu_lo, lu_up, lx_lo, lx_up)
     K, kf, rh, r2 = backward_sweep(
-        qp, _stage_blocks(a, b, bc, dt), zx, zu, bd, mu,
+        qp, _stage_blocks(a, b, bc, dt), zx, zu, glue_rows(qp, bd, mu),
         h=h, diag6_stage=diag6_stage, diag6_term=diag6_term, rdiag_stage=rdiag_stage,
     )
     K40 = [[K[k][l][j] for l in range(NU) for j in range(NX)] for k in range(len(K))]
@@ -631,3 +643,176 @@ def riccati_iter_fused(
     )
     outs = riccati_forward_glue(a, b, bc, rhat, K, kf, *state, dx0_res, h=h, tau=tau)
     return outs + (res2,)
+
+
+# ---- one Newton sweep with the row terms given (riccati_sweep_sparse) ----
+
+
+def riccati_sweep_backward_plain(
+    hq, gx, gu, a, b, bc, r, zx, zu, sig_u, sig_x, corr_u, corr_x,
+    *, h, diag6_stage, diag6_term, rdiag_stage,
+):
+    """The same function as the K6 kernel (`_backward_kernel`): the
+    backward sweep at the iterate (zx, zu) with sig/corr given. hq/a/b may
+    be bf16 (read back to the compute dtype of gx). Returns (K (N,40,B),
+    kf (N,4,B), rhat (N,10,B))."""
+    dt = gx.dtype
+    qp = StagePayload(hq.to(dt), gx, gu, None, None, None, r, None, None, None, None, None)
+    K, kf, rh, _ = backward_sweep(
+        qp, _stage_blocks(a, b, bc, dt), zx, zu, given_rows(sig_u, sig_x, corr_u, corr_x),
+        h=h, diag6_stage=diag6_stage, diag6_term=diag6_term, rdiag_stage=rdiag_stage,
+    )
+    K40 = [[K[k][l][j] for l in range(NU) for j in range(NX)] for k in range(len(K))]
+    return stack_rows(K40), stack_rows(kf), stack_rows(rh)
+
+
+def riccati_sweep_forward_plain(
+    a, b, bc, rhat, K, kf, dx0_res, clip_lo=None, clip_hi=None, *, h, with_hold=False,
+):
+    """The same function as the K7 kernel (`_forward_kernel`): du = K dx +
+    kf, clipped to [clip_lo, clip_hi] (N,4,B) where given (NaN propagates),
+    then dx' = A dx + B du + rhat; with `with_hold` also the zero-control
+    rollout dx_hold' = A dx_hold + rhat from the same dx0_res (1,10,B).
+    Returns (dx (N+1,10,B), du (N,4,B)) and with `with_hold` dx_hold
+    (N+1,10,B)."""
+    N = K.shape[0]
+    blocks = _stage_blocks(a, b, bc, bc.dtype)
+    Kl = K.reshape(N, NU, NX, -1)
+    dx = list(dx0_res[0])
+    dxh = list(dx)
+    dxs, dus, dxhs = [], [], []
+    for k in range(N):
+        du = [tsum(Kl[k][l][j] * dx[j] for j in range(NX)) + kf[k][l] for l in range(NU)]
+        if clip_lo is not None:
+            du = [torch.minimum(torch.maximum(du[l], clip_lo[k][l]), clip_hi[k][l])
+                  for l in range(NU)]
+        dxs.append(dx)
+        dus.append(du)
+        dx = dyn_step(*blocks[k], rhat[k], h, dx, du)
+        if with_hold:
+            dxhs.append(dxh)
+            dxh = dyn_step(*blocks[k], rhat[k], h, dxh, None)
+    dxs.append(dx)
+    out = (stack_rows(dxs), stack_rows(dus))
+    if with_hold:
+        dxhs.append(dxh)
+        out += (stack_rows(dxhs),)
+    return out
+
+
+class _SweepPtrs(ctypes.Structure):
+    """Mirror of `ndp::SweepPtrs` (csrc/riccati_sweep.cu)."""
+
+    _fields_ = [("q", _cuda.QpPtrs)] + _cuda.pointers((
+        "zx", "zu", "sig_u", "sig_x", "corr_u", "corr_x", "K", "kf", "rh", "dx0_res",
+        "clip_lo", "clip_hi", "dx", "du", "dx_hold",
+    ))
+
+
+def _sweep_lib():
+    return _cuda.bind(
+        "riccati_sweep", _SweepPtrs,
+        ("riccati_sweep_backward_launch", "riccati_sweep_forward_launch"),
+    )
+
+
+def _sweep_ptrs(qp: dict, tensors: dict, a):
+    """Check every tensor and build the pointer struct; returns it with the
+    stage count, batch and device."""
+    _cuda.need_cuda("riccati_sweep_sparse", a)
+    N, _, B = a.shape
+    shapes = dict(
+        zx=(N + 1, NX, B), zu=(N, NU, B), sig_u=(N, NU, B), sig_x=(N + 1, 3, B),
+        corr_u=(N, NU, B), corr_x=(N + 1, 3, B), K=(N, NU * NX, B), kf=(N, NU, B),
+        rh=(N, NX, B), dx0_res=(1, NX, B), clip_lo=(N, NU, B), clip_hi=(N, NU, B),
+        dx=(N + 1, NX, B), du=(N, NU, B), dx_hold=(N + 1, NX, B),
+    )
+    for name, t in tensors.items():
+        if t is not None:
+            _cuda.check(name, t, shapes[name], a.device)
+    q = _cuda.qp_ptrs(qp, N, B, a.dtype == torch.bfloat16, a.device)
+    return _SweepPtrs(q=q, **{n: _cuda.ptr(t) for n, t in tensors.items()}), N, B
+
+
+def riccati_sweep_backward(
+    hq, gx, gu, a, b, bc, r, zx, zu, sig_u, sig_x, corr_u, corr_x, **consts,
+):
+    """K6, the backward sweep with the row terms given, one kernel launch;
+    arguments and results as `riccati_sweep_backward_plain`. Counts its
+    launches in `riccati_sweep_backward.launches`."""
+    if a.device.type == "cpu":
+        return riccati_sweep_backward_plain(
+            hq, gx, gu, a, b, bc, r, zx, zu, sig_u, sig_x, corr_u, corr_x, **consts,
+        )
+    N, _, B = a.shape
+    out = dict(
+        K=torch.empty((N, NU * NX, B), dtype=torch.float32, device=a.device),
+        kf=torch.empty((N, NU, B), dtype=torch.float32, device=a.device),
+        rh=torch.empty((N, NX, B), dtype=torch.float32, device=a.device),
+    )
+    ptrs, N, B = _sweep_ptrs(
+        dict(hq=hq, gx=gx, gu=gu, a=a, b=b, bc=bc, r=r),
+        dict(zx=zx, zu=zu, sig_u=sig_u, sig_x=sig_x, corr_u=corr_u, corr_x=corr_x, **out), a,
+    )
+    _cuda.launch(_sweep_lib().riccati_sweep_backward_launch, a.dtype == torch.bfloat16,
+                 _cuda.step_consts(N, consts), ptrs, B, a.device)
+    riccati_sweep_backward.launches += 1
+    return out["K"], out["kf"], out["rh"]
+
+
+def riccati_sweep_forward(
+    a, b, bc, rhat, K, kf, dx0_res, clip_lo=None, clip_hi=None, *, h, with_hold=False,
+):
+    """K7, the forward rollout (optional clip, optional zero-control hold
+    rollout), one kernel launch; arguments and results as
+    `riccati_sweep_forward_plain`. Without a clip no bound is read (null
+    pointers). `with_hold` is meaningful only at the zero iterate, where
+    rhat equals the payload's r; that is the caller's to ensure. Counts its
+    launches in `riccati_sweep_forward.launches`."""
+    if a.device.type == "cpu":
+        return riccati_sweep_forward_plain(
+            a, b, bc, rhat, K, kf, dx0_res, clip_lo, clip_hi, h=h, with_hold=with_hold,
+        )
+    if (clip_lo is None) != (clip_hi is None):
+        raise ValueError("riccati_sweep_forward: give both clip bounds or neither")
+    N, _, B = a.shape
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=a.device)
+    out = dict(dx=new(N + 1, NX, B), du=new(N, NU, B),
+               dx_hold=new(N + 1, NX, B) if with_hold else None)
+    ptrs, N, B = _sweep_ptrs(
+        dict(a=a, b=b, bc=bc),
+        dict(K=K, kf=kf, rh=rhat, dx0_res=dx0_res, clip_lo=clip_lo, clip_hi=clip_hi, **out), a,
+    )
+    _cuda.launch(_sweep_lib().riccati_sweep_forward_launch, a.dtype == torch.bfloat16,
+                 _cuda.step_consts(N, dict(h=h)), ptrs, B, a.device)
+    riccati_sweep_forward.launches += 1
+    return (out["dx"], out["du"]) + ((out["dx_hold"],) if with_hold else ())
+
+
+riccati_sweep_backward.launches = 0
+riccati_sweep_forward.launches = 0
+
+
+def riccati_sweep_sparse(
+    hq, gx, gu, a, b, bc, r, zx, zu, sig_u, sig_x, corr_u, corr_x, dx0_res,
+    clip_lo=None, clip_hi=None, *, h, diag6_stage, diag6_term, rdiag_stage,
+    with_hold=False,
+):
+    """One Newton sweep of the equality-constrained LQR at the iterate
+    (zx, zu), gradients ghat = g + H z + corr and defects rhat = A zx + B zu
+    + r - zx' assembled in the backward sweep (two launches on CUDA tensors:
+    K6, K7). Shapes: payload as `linearize_stage_data` returns it, zx
+    (N+1,10,B), zu (N,4,B), sig_u/corr_u (N,4,B), sig_x/corr_x (N+1,3,B),
+    dx0_res (1,10,B), clip_lo/hi (N,4,B) or None.
+
+    Returns (dx (N+1,10,B), du (N,4,B), rhat (N,10,B)); with `with_hold`
+    also the zero-control rollout dx_hold (N+1,10,B), valid only at the zero
+    iterate (zx = zu = 0, where rhat equals r), as the TPU version."""
+    K, kf, rhat = riccati_sweep_backward(
+        hq, gx, gu, a, b, bc, r, zx, zu, sig_u, sig_x, corr_u, corr_x,
+        h=h, diag6_stage=diag6_stage, diag6_term=diag6_term, rdiag_stage=rdiag_stage,
+    )
+    dx, du, *hold = riccati_sweep_forward(
+        a, b, bc, rhat, K, kf, dx0_res, clip_lo, clip_hi, h=h, with_hold=with_hold,
+    )
+    return (dx, du, rhat, *hold)

@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import resolve_device
+from .. import const, resolve_device
 from ..ops.kernels import ipm_whole, step_whole
 from ..ops.layout import pack, unpack
 from ..params import OcpParams, VehicleParams
@@ -83,15 +83,14 @@ def first_control_and_health(
         x_bar, u_bar = x_bar.permute(1, 2, 0), u_bar.permute(1, 2, 0)
     dt, dev = u_bar.dtype, u_bar.device
     N = ocp.N_node
-    u_lo = torch.as_tensor(ocp.u_lower(), dtype=dt, device=dev)
-    u_hi = torch.as_tensor(ocp.u_upper(), dtype=dt, device=dev)
+    box = lambda v: const(tuple(float(x) for x in v), dt, dev)
+    u_lo, u_hi = box(ocp.u_lower()), box(ocp.u_upper())
     u0 = torch.clamp(u_bar[0].T, min=u_lo, max=u_hi)
     bound_tol = 1e-4 * (u_hi - u_lo)
     lo = (u_lo - bound_tol).view(1, 4, 1)
     hi = (u_hi + bound_tol).view(1, 4, 1)
     in_box = ((u_bar >= lo) & (u_bar <= hi)).all(dim=1).all(dim=0)
-    v_lo = torch.as_tensor(ocp.v_lower(), dtype=dt, device=dev)
-    v_hi = torch.as_tensor(ocp.v_upper(), dtype=dt, device=dev)
+    v_lo, v_hi = box(ocp.v_lower()), box(ocp.v_upper())
     v_tol = 1e-3 * (v_hi - v_lo)
     v_plan = x_bar[1:N, 3:6]
     in_box &= (
@@ -128,16 +127,17 @@ def make_batched_rti_controller(
       ignores `whole_step` too): the linearization (K3), then with
       `whole_ipm=True` the whole IPM in one launch (K2), with the axpy
       folded into it when `packed_state=True`; with `whole_ipm=False` one
-      glue-fused iteration (K4 + K5) per IPM iteration from the
-      zero-control start, which needs `lqr_start=False`.
+      glue-fused iteration (K4 + K5) per IPM iteration, from the clipped-LQR
+      start (`lqr_start=True`: one K6 + K7 sweep with the zero-control
+      fallback for the far regime) or the zero-control rollout
+      (`lqr_start=False`).
     - `packed_state=True` keeps the state in kernel layout, updated in
       place; `packed_state=False` keeps it batch-first and packs the inputs
       and unpacks the deltas every tick. The port does not pad B.
 
     `warm_start` carries the QP duals across ticks; `jac_bf16` stores the
     curvature payloads in bfloat16. Not ported yet, and raising: the scan
-    and legacy dense backends, `fused_lin=False` and the clipped-LQR start
-    of the per-iteration path.
+    and legacy dense backends and `fused_lin=False`.
 
     Runs on `device`, by default the card; without a card and without an
     explicit device it raises.
@@ -153,11 +153,6 @@ def make_batched_rti_controller(
             "ROADMAP Queue 1 item 10"
         )
     one_kernel = packed_state and whole_step
-    if not (one_kernel or whole_ipm) and lqr_start:
-        raise NotImplementedError(
-            "lqr_start=True on the per-iteration path needs the clipped-LQR "
-            "start sweep riccati_sweep_sparse: ROADMAP Queue 2 K6+K7"
-        )
     if qp_iters < 1:
         raise ValueError(f"qp_iters must be >= 1, got {qp_iters}")
     dev = resolve_device(device)
@@ -218,7 +213,7 @@ def make_batched_rti_controller(
     def solve(qp, dx0_p, warm, xu_bar=None):
         B = dx0_p.shape[-1]
         return ipm_sparse(
-            qp, sp_consts, dx0_p, num_iters=qp_iters, warm=warm, lqr_start=False,
+            qp, sp_consts, dx0_p, num_iters=qp_iters, warm=warm, lqr_start=lqr_start,
             whole_kernel=whole_ipm, xu_bar=xu_bar,
             workspace=workspace(B, lambda B: ipm_whole.make_workspace(B, N, dev))
             if whole_ipm else None,

@@ -186,3 +186,53 @@ def check_iter(args, consts):
     errs = {**e4, **e5, "max_abs_K4": e4["max_abs"], "max_abs_K5": e5["max_abs"]}
     errs["max_abs"] = max(e4["max_abs"], e5["max_abs"])
     return errs, bad4 + bad5
+
+
+def sweep_args(qp, consts, call, seed=0):
+    """The 16 arguments of `riccati_sweep_sparse` over payload qp (the 12
+    tensors of `linearize_stage_data`) and its `with_hold`, in the two ways
+    the IPM calls it: "lqr_start" (the zero iterate, zero sig/corr, the
+    controls clipped to the box less a 1e-3 margin, with the hold rollout)
+    and "unfused_glue" (`iter_args`' jittered per-iteration start, sig/corr
+    from `ipm_corr_terms`, no clip, no hold)."""
+    from .solver.qp_ipm import ipm_corr_terms
+
+    N, _, B = qp[2].shape
+    if call == "lqr_start":
+        z = lambda *s: torch.zeros(s, dtype=qp[1].dtype, device=qp[1].device)
+        zu, z3 = z(N, 4, B), z(N + 1, 3, B)
+        margin = 1e-3 * (qp[8] - qp[7])
+        return (*qp[:7], z(N + 1, 10, B), zu, zu, z3, zu, z3, qp[11],
+                qp[7] + margin, qp[8] - margin), True
+    args = iter_args(qp, consts, seed=seed)
+    zx, zu, su_lo, su_up, sx_lo, sx_up, lu_lo, lu_up, lx_lo, lx_up = args[7:17]
+    mu = args[21]
+    sig_u, corr_u, *_ = ipm_corr_terms(zu, qp[7], qp[8], su_lo, su_up, lu_lo, lu_up, mu)
+    sig_x, corr_x, *_ = ipm_corr_terms(zx[:, 3:6], qp[9], qp[10], sx_lo, sx_up, lx_lo, lx_up, mu)
+    return (*qp[:7], zx, zu, sig_u, sig_x, corr_u, corr_x, args[22], None, None), False
+
+
+def check_sweep(args, hold, consts):
+    """K6 and K7 on the card against their plain versions on the same
+    inputs (`sweep_args`); K7 gets the plain backward sweep's gains and
+    defects on both sides, so each kernel is held alone. Every output is
+    "primal". Returns ({name: error} with max_abs_K6/_K7 beside max_abs,
+    out of tolerance)."""
+    from .ops.kernels import riccati_sparse as rs
+
+    kw = dict(h=consts["h"], diag6_stage=consts["diag6_stage"],
+              diag6_term=consts["diag6_term"], rdiag_stage=consts["rdiag_stage"])
+    bwd, dx0_res, lo, hi = args[:13], args[13], args[14], args[15]
+    got = rs.riccati_sweep_backward(*bwd, **kw)
+    ref = rs.riccati_sweep_backward_plain(*bwd, **kw)
+    e6, bad6 = compare({n: ("primal", g, r) for n, g, r in zip(("K", "kf", "rhat"), got, ref)})
+    K, kf, rhat = ref
+    a, b, bc = args[3], args[4], args[5]
+    got = rs.riccati_sweep_forward(a, b, bc, rhat, K, kf, dx0_res, lo, hi, h=consts["h"],
+                                   with_hold=hold)
+    ref = rs.riccati_sweep_forward_plain(a, b, bc, rhat, K, kf, dx0_res, lo, hi, h=consts["h"],
+                                         with_hold=hold)
+    e7, bad7 = compare({n: ("primal", g, r) for n, g, r in zip(("dx", "du", "dx_hold"), got, ref)})
+    errs = {**e6, **e7, "max_abs_K6": e6["max_abs"], "max_abs_K7": e7["max_abs"]}
+    errs["max_abs"] = max(e6["max_abs"], e7["max_abs"])
+    return errs, bad6 + bad7

@@ -132,3 +132,27 @@ def test_two_kernel_path_kernels_match_plain_on_the_card(jac_bf16):
     assert not bad, f"K4/K5: {bad} out of tolerance: {testing.describe(errs)}"
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1] + 6, before[2] + 1, before[3] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call", ["lqr_start", "unfused_glue"])
+@pytest.mark.parametrize("jac_bf16", [False, True])
+def test_sweep_kernels_match_plain_on_the_card(jac_bf16, call):
+    """K6 and K7 (`riccati_sweep_sparse`) in both ways the IPM calls them,
+    with both payloads, at the tolerances of `testing.check_sweep`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    cfg = NdpNmpcConfig()
+    N, B = cfg.ocp.N_node, 300  # not a multiple of the 128-thread block
+    lc = lin_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16)
+    ic = ipm_consts(cfg.ocp, num_iters=3)
+    qp = linearize.linearize_stage_data_plain(*testing.kernel_inputs(B, N, dev, seed=3), **lc)
+    counts = lambda: (riccati_sparse.riccati_sweep_backward.launches,
+                      riccati_sparse.riccati_sweep_forward.launches)
+    before = counts()
+    args, hold = testing.sweep_args(qp, ic, call)
+    errs, bad = testing.check_sweep(args, hold, ic)
+    torch.cuda.synchronize()
+    assert not bad, f"K6/K7 ({call}): {bad} out of tolerance: {testing.describe(errs)}"
+    assert counts() == (before[0] + 1, before[1] + 1)

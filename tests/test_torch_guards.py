@@ -12,10 +12,8 @@ from ndp_nmpc_qd_tpu_torch import testing
 from ndp_nmpc_qd_tpu_torch.ops.kernels import ipm_whole, linearize, riccati_sparse, step_whole
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
 from ndp_nmpc_qd_tpu_torch.solver import rti
-from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import (
-    SparseQp, ipm_consts, lin_consts, sparse_consts, whole_step_consts,
-)
-from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import cold_warm, ipm_sparse
+from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import ipm_consts, lin_consts, whole_step_consts
+from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import cold_warm
 
 
 @pytest.fixture(autouse=True)
@@ -127,13 +125,64 @@ def test_cuda_wrappers_refuse_other_devices():
         linearize.linearize_stage_data(*ins, **lin_consts(cfg.ocp, cfg.vehicle, True))
 
 
-@pytest.mark.parametrize("bad", [dict(lqr_start=True), dict(lqr_start=False, fuse_glue=False)])
-def test_unported_ipm_options_raise(bad):
-    """The per-iteration IPM's clipped-LQR start and unfused glue need
-    `riccati_sweep_sparse` (K6+K7), not ported yet."""
+def test_sweep_wrappers_take_the_plain_versions_on_cpu_tensors():
+    """K6 and K7 return exactly their plain versions' results for CPU
+    tensors, in both call shapes, count no launch, and refuse other
+    devices."""
     cfg = NdpNmpcConfig()
-    N, B = cfg.ocp.N_node, 2
-    lc = lin_consts(cfg.ocp, cfg.vehicle, True)
-    *fields, dx0 = linearize.linearize_stage_data(*testing.kernel_inputs(B, N, "cpu", 0), **lc)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 K6"):
-        ipm_sparse(SparseQp(*fields), sparse_consts(cfg.ocp), dx0, num_iters=1, **bad)
+    N, B = cfg.ocp.N_node, 3
+    lc = lin_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=True)
+    ic = ipm_consts(cfg.ocp, num_iters=1)
+    qp = linearize.linearize_stage_data(*testing.kernel_inputs(B, N, "cpu", seed=0), **lc)
+    kw = {k: ic[k] for k in ("h", "diag6_stage", "diag6_term", "rdiag_stage")}
+    wrappers = (riccati_sparse.riccati_sweep_backward, riccati_sparse.riccati_sweep_forward)
+    before = [w.launches for w in wrappers]
+    for call in ("lqr_start", "unfused_glue"):
+        args, hold = testing.sweep_args(qp, ic, call)
+        got = riccati_sparse.riccati_sweep_sparse(*args, **kw, with_hold=hold)
+        K, kf, rhat = riccati_sparse.riccati_sweep_backward_plain(*args[:13], **kw)
+        want = riccati_sparse.riccati_sweep_forward_plain(
+            *args[3:6], rhat, K, kf, *args[13:], h=ic["h"], with_hold=hold)
+        assert len(got) == 4 if hold else 3
+        for g, r in zip(got, (want[0], want[1], rhat) + want[2:]):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert [w.launches for w in wrappers] == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        riccati_sparse.riccati_sweep_backward(*(t.to("meta") for t in args[:13]), **kw)
+
+
+@pytest.mark.parametrize("bad", [dict(solver_backend="jax"), dict(swarm_shards=2)])
+def test_unported_ipm_options_raise(bad):
+    """The episode's options that are not ported yet raise, naming their
+    ROADMAP item: the scan controller (`solver_backend="jax"`, Queue 1
+    item 8) and the sharded episode (Queue 1 item 11). The per-iteration
+    IPM's clipped-LQR start and unfused glue, which raised here before
+    K6+K7 were ported, run now (`test_torch_riccati_sweep.py`)."""
+    from ndp_nmpc_qd_tpu_torch.cli import build_eight
+    from ndp_nmpc_qd_tpu_torch.sim.closed_loop import make_episode
+
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        make_episode(NdpNmpcConfig(), build_eight(), n_drones=2, device="cpu", **bad)
+
+
+@pytest.mark.parametrize("argv", [["serve"], ["mission", "one_qd", "--cpu", "--f64",
+                                              "--controller", "thrust"]])
+def test_unported_cli_commands_raise(argv):
+    """The runtime daemons (ROADMAP Queue 1 item 9) and the thrust
+    controller (item 10) raise instead of running something else."""
+    from ndp_nmpc_qd_tpu_torch.cli import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        main(argv)
+
+
+def test_mission_cli_without_a_card_fails(monkeypatch):
+    """Without a card and without --cpu the mission command fails; --f64
+    without --cpu raises (the kernels are f32)."""
+    from ndp_nmpc_qd_tpu_torch.cli import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["one_qd", "--track-secs", "0.02", "--hold-ticks", "0"])
+    with pytest.raises(NotImplementedError, match="--f64"):
+        main(["one_qd", "--f64"])

@@ -1,11 +1,15 @@
-"""Where the PyTorch port's control step spends its device time.
+"""Where the PyTorch port's control step and mission tick spend their
+device time.
 
 Runs each controller path of `chip_smoke.py` (bf16 downwash forecast + one
 RTI update, warm start, qp_iters=3, bf16 Jacobians): the one-kernel step
-(K1), the two-kernel path (K3 + K2) and the per-iteration path (K3, then
-K4 + K5 per IPM iteration), at B=65536 on one CUDA card for 10 ticks each
-under `torch.profiler`, and prints per path the device time per kernel
-name, the step's wall time per tick and the device's busy share of it.
+(K1), the two-kernel path (K3 + K2) and the per-iteration paths (K3, K6 +
+K7 from the clipped-LQR start, then K4 + K5 per IPM iteration), at B=65536
+on one CUDA card for 10 ticks each under `torch.profiler`; then each
+mission of `chip_smoke.py` phase 9 through `cli.run_mission` for 30 ticks
+(10 hold, 20 tracking; one unprofiled run first). Prints per path and
+mission the device time per kernel name, the wall time per tick and the
+device's busy share of it.
 
     python3 tools/profile_torch_step.py
 """
@@ -23,7 +27,8 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import ASSET, CFG, PATHS, controller, forecast, inputs  # noqa: E402
+from chip_smoke import ASSET, CFG, MISSIONS, PATHS, controller, forecast, inputs  # noqa: E402
+from ndp_nmpc_qd_tpu_torch import cli  # noqa: E402
 from ndp_nmpc_qd_tpu_torch.models.downwash_mlp import load_npz  # noqa: E402
 
 B = 65536
@@ -48,16 +53,38 @@ def profile_path(path, mlp, dev, smi):
             state = tick(state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / TICKS
+    report(f"{path} path; card: {smi}; B={B}, N={CFG.ocp.N_node}, {TICKS} ticks", prof, TICKS,
+           wall_ms)
 
+
+def profile_mission(name, smi, ticks=30):
+    """The mission's first `ticks` ticks (a third holding, the rest
+    tracking); the wall time per tick is `run_mission`'s, which leaves out
+    the episode's set-up, the device time includes it."""
+    argv, _ = MISSIONS[name]
+    hold = ticks // 3
+    args = lambda: cli.make_parser().parse_args(
+        ["mission", *argv, "--hold-ticks", str(hold),
+         "--track-secs", str((ticks - hold) * CFG.ocp.ts_nmpc)])
+    cli.run_mission(args())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result, _ = cli.run_mission(args())
+    T = result["ticks"]
+    report(f"mission {name}; card: {smi}; {result['n_drones']} drones, {T} ticks", prof, T,
+           result["ms_per_tick"])
+
+
+def report(title, prof, ticks, wall_ms):
     rows = []  # kernels only: the aten rows repeat their kernels' time
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
-            rows.append((ev.self_device_time_total / TICKS / 1e3, ev.count // TICKS, ev.key))
+            rows.append((ev.self_device_time_total / ticks / 1e3, ev.count // ticks, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
-    print(f"{path} path; card: {smi}; B={B}, N={CFG.ocp.N_node}, {TICKS} ticks")
-    print(f"step wall {wall_ms:.3f} ms/tick (host clock, synchronized, profiler on); "
+    print(title)
+    print(f"wall {wall_ms:.3f} ms/tick (host clock, synchronized, profiler on); "
           f"device busy {busy:.3f} ms/tick ({100 * busy / wall_ms:.1f}%); "
           f"{launches} device kernels a tick")
     print(f"{'device ms/tick':>15} {'calls/tick':>10}  kernel")
@@ -77,6 +104,8 @@ def main():
     ).stdout.strip()
     for path in PATHS:
         profile_path(path, mlp, dev, smi)
+    for name in MISSIONS:
+        profile_mission(name, smi)
 
 
 if __name__ == "__main__":
