@@ -20,6 +20,10 @@ Phases, one line each; any failure exits non-zero before the last line:
       IPM calls them: at the zero iterate with the clip and the hold
       rollout (the clipped-LQR start), and at a jittered iterate with
       sig/corr from `ipm_corr_terms`, no clip, no hold (the unfused glue).
+   d. K8 and K9 (the dense sweep of the legacy packed path,
+      `riccati_sweep_packed`, f32) in both ways `ipm_packed` calls them:
+      the clipped-LQR start (zero sig, clip) and a Newton iteration
+      (nonzero sig, the defects rhat, no clip).
 4. main path: bf16 downwash forecast + `reset` + `update` of the deployed
    controller (warm start, 3 QP iterations, bf16 Jacobians, one K1 launch a
    tick) at B=65536: health, mean step time over 30 queued ticks (CUDA
@@ -31,6 +35,12 @@ Phases, one line each; any failure exits non-zero before the last line:
    (K3, then K4 + K5 per IPM iteration).
    b. the same from the clipped-LQR start (`lqr_start=True`: K3, K6 + K7,
       then K4 + K5 per IPM iteration).
+   c. the legacy dense path (`backend="pallas_packed"`, cold, 12 QP
+      iterations, f32: the dense linearizer, then K8 + K9 for the
+      clipped-LQR start and once per IPM iteration, 13 of each a tick),
+      then one tick of it and of the scan controller (`backend="jax"`) on
+      a 256-scenario sub-batch, held at 1e-4, twice: from `reset` (the
+      deltas of order one) and from the state the path left.
 7. closed loop: 150-tick hover recovery at B=65536 through an RK4 plant that
    feels the same node-0 forecast force the controller was given.
 8. kernels: each kernel against its plain version once more at B=65536 on
@@ -39,12 +49,16 @@ Phases, one line each; any failure exits non-zero before the last line:
    plain-version time and error against it.
 9. missions through the port's CLI (`cli.run_mission`), 200 hold ticks and
    16 s of the figure-eight (1000 ticks), recovery on:
-   a. `three_qd_ndp` (3 drones, the kernel controller cold@12 from the
-      clipped-LQR start), every tick's controls held against the JAX
-      mission golden (assets/mission_golden_three_qd_ndp.npz) at 1e-3;
-   b. `swarm --formation --drones 65536` (21845 three-drone NDP
+   a. `three_qd_ndp` (3 drones: the scan controller cold@12, as the JAX
+      CLI resolves a small topology, no kernel), every tick's controls held
+      against the JAX mission golden (assets/mission_golden_three_qd_ndp.npz,
+      the JAX scan mission) at 1e-3;
+   b. `three_qd_ndp --backend pallas` on the kernels cold@12 with
+      batch-first state and the clipped-LQR start (K3, K6 + K7, then
+      K4 + K5 per IPM iteration), held against the same golden;
+   c. `swarm --formation --drones 65536` (21845 three-drone NDP
       formations), the deployed one-kernel configuration;
-   c. the same with the clipped-LQR per-iteration controller
+   d. the same with the clipped-LQR per-iteration controller
       (`--no-whole-step --no-whole-ipm`);
    each with its launches per tick, health, RMSE and wall time per tick.
 Every path and mission sets its kernels' launch counts to 0 just before it
@@ -74,13 +88,14 @@ from ndp_nmpc_qd_tpu_torch.models.quadrotor import (
 from ndp_nmpc_qd_tpu_torch.ops.integrators import make_discrete_dynamics
 from ndp_nmpc_qd_tpu_torch import testing
 from ndp_nmpc_qd_tpu_torch.ops.kernels import (
-    _build, ipm_whole, linearize, riccati_sparse, step_whole,
+    _build, ipm_whole, linearize, riccati, riccati_sparse, step_whole,
 )
 from ndp_nmpc_qd_tpu_torch.ops.layout import pack
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
 from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import (
     SparseQp, ipm_consts, lin_consts, sparse_consts, whole_step_consts,
 )
+from ndp_nmpc_qd_tpu_torch.solver.ocp_packed import make_ocp_functions_packed
 from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import IpmWarm, cold_warm, ipm_sparse
 from ndp_nmpc_qd_tpu_torch.solver.rti import (
     RtiState, first_control_and_health, make_batched_rti_controller,
@@ -139,12 +154,15 @@ def cuda_ms(fn, reps):
 
 
 class OpCount(TorchDispatchMode):
-    """Counts the elementwise arithmetic the plain version does."""
+    """Counts the arithmetic the plain version does: one operation per
+    element of an elementwise result, two per multiply-add of a matrix
+    product (the dense plain versions contract with einsum, i.e. bmm)."""
 
     ARITH = {
         "add", "sub", "rsub", "mul", "div", "neg", "sqrt", "reciprocal", "abs",
         "maximum", "minimum", "clamp", "clamp_min", "clamp_max",
     }
+    MATMUL = {"bmm", "mm"}
 
     def __init__(self):
         super().__init__()
@@ -152,8 +170,11 @@ class OpCount(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if func.overloadpacket.__name__ in self.ARITH:
+        name = func.overloadpacket.__name__
+        if name in self.ARITH:
             self.ops += out.numel()
+        elif name in self.MATMUL:
+            self.ops += 2 * out.numel() * args[0].shape[-1]
         return out
 
 
@@ -180,9 +201,12 @@ def ptxas_summary(log):
     nvcc's `-Xptxas -v` output."""
     out, name, frame = [], "?", "stack frame not reported"
     for ln in log.splitlines():
-        m = re.search(r"entry function '_Z\d+(\w+?)I(f|13__nv_bfloat16)E", ln)
+        m = re.search(r"entry function '_Z(\d+)(\w+)'", ln)
         if m:
-            name = f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}>"
+            n = int(m.group(1))
+            name, rest = m.group(2)[:n], m.group(2)[n:]
+            if rest.startswith(("If", "I13__nv_bfloat16")):
+                name += "<f32>" if rest.startswith("If") else "<bf16>"
         elif "bytes stack frame" in ln:
             frame = ln.strip()
         elif "ptxas info" in ln and "Used" in ln:
@@ -293,7 +317,9 @@ def phase_compare(B, dev, seed, mlp):
     return res
 
 
-# Each path's kernels and launches per tick (qp_iters=3).
+PACKED_ITERS = 12  # the packed path has no warm start: cold@12, as the JAX CLI runs cold
+
+# Each path's kernels and launches per tick (qp_iters=3 unless given).
 KERNELS = {
     "K1": step_whole.control_step_whole,
     "K3": linearize.linearize_stage_data,
@@ -302,6 +328,8 @@ KERNELS = {
     "K5": riccati_sparse.riccati_forward_glue,
     "K6": riccati_sparse.riccati_sweep_backward,
     "K7": riccati_sparse.riccati_sweep_forward,
+    "K8": riccati.riccati_backward_packed,
+    "K9": riccati.riccati_forward_packed,
 }
 PATHS = {
     "one-kernel": (dict(whole_step=True), {"K1": 1}),
@@ -310,6 +338,9 @@ PATHS = {
                       {"K3": 1, "K4": 3, "K5": 3}),
     "per-iteration LQR": (dict(whole_step=False, whole_ipm=False, lqr_start=True),
                           {"K3": 1, "K6": 1, "K7": 1, "K4": 3, "K5": 3}),
+    # the legacy dense path is cold and f32; it ignores the other flags
+    "pallas_packed": (dict(backend="pallas_packed", packed_state=False, whole_step=False,
+                           qp_iters=PACKED_ITERS), {"K8": 1 + PACKED_ITERS, "K9": 1 + PACKED_ITERS}),
 }
 
 
@@ -400,6 +431,16 @@ def phase_compare_sweep(B, dev, seed):
                   f"{', '.join(bad)} out of tolerance")
 
 
+def phase_compare_packed(B, dev, seed):
+    """K8 and K9 against their plain versions on the same inputs, f32, in
+    both ways `ipm_packed` calls them (`testing.packed_args`)."""
+    p, dx0 = testing.dense_payload(CFG, B, dev, seed)
+    for call in ("lqr_start", "newton"):
+        errs, bad = testing.check_packed(testing.packed_args(p, dx0, call))
+        print(f"kernel vs plain (K8 + K9, {call}, f32, B={B}): {testing.describe(errs)}")
+        check(not bad, f"K8 + K9 vs plain ({call}, B={B}): {', '.join(bad)} out of tolerance")
+
+
 def phase_path(B, dev, seed, mlp, path="one-kernel", warm_ticks=3, timed_ticks=30):
     """Drive one controller path: every kernel's count set to 0 just before,
     read just after; health, step time, launches per tick."""
@@ -435,7 +476,9 @@ def phase_path(B, dev, seed, mlp, path="one-kernel", warm_ticks=3, timed_ticks=3
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
     where = "CUDA events" if dev.type == "cuda" else "host clock, CPU"
     counted = ", ".join(f"{k} {launches[k]}" for k in KERNELS if launches[k] or k in per_tick)
-    print(f"{path} path (B={B}, N={N}, qp_iters=3, bf16 Jacobians, warm start): ok {n_ok}/{B}; "
+    config = (f"qp_iters={flags['qp_iters']}, cold, f32" if "backend" in flags
+              else "qp_iters=3, bf16 Jacobians, warm start")
+    print(f"{path} path (B={B}, N={N}, {config}): ok {n_ok}/{B}; "
           f"step {step_ms:.3f} ms mean over {timed_ticks} queued ticks ({where}); "
           f"{B / step_ms * 1e3:.0f} solves/s; launches {counted} for {ticks} ticks; "
           f"max eq_res {float(info.eq_res.max()):.3g}; peak memory {peak:.2f} GiB")
@@ -461,6 +504,35 @@ def phase_agree(two, dev, mlp):
                         [s1.x_bar, s1.u_bar, *s1.ipm], i1.eq_res, B)
     print(f"two-kernel vs one-kernel path (bf16 payload, B={B}, one tick from the two-kernel "
           f"path's state): " + describe_pair(e))
+
+
+def phase_packed_agree(res, dev, mlp, sub=256):
+    """One tick of the pallas_packed controller and one of the scan
+    controller on a sub-batch of the path's inputs, from `reset` (where the
+    Newton directions are of order one: hover offsets up to 1 m) and from
+    the state the path left: they solve the same QP with the same IPM (the
+    nominal regime, where the scan path's far-regime fallback is not
+    taken), so the controls agree at `tests/test_pallas_riccati.py`'s 1e-4.
+    |du0| = |u0 - u_bar0| says how far the tick moved the controls."""
+    st = res["state"]
+    x0, xr, ur = res["x0"][:sub], res["xr"][:sub], res["ur"][:sub]
+    f = forecast(mlp, res["other"][:sub], xr, x0, torch.bfloat16)
+    scan = make_batched_rti_controller(CFG.ocp, CFG.vehicle, with_disturbance=True,
+                                       qp_iters=PACKED_ITERS, backend="jax", device=dev)
+    starts = {"reset": res["ctl"].reset(xr, ur),
+              "the path's state": RtiState(st.x_bar[:sub].clone(), st.u_bar[:sub].clone())}
+    for where, state in starts.items():
+        u_k, _, i_k = res["ctl"].update(state, x0, xr, ur, f)
+        u_s, _, i_s = scan.update(state, x0, xr, ur, f)
+        err = float((u_k - u_s).abs().max())
+        du = float((u_k - state.u_bar[:, 0]).abs().max())
+        ok_diff = int((i_k.ok != i_s.ok).sum())
+        print(f"pallas_packed vs scan controller (B={sub}, one tick from {where}): max "
+              f"|u0 - u0_scan| {err:.3g} (bound 1e-4) at max |du0| {du:.3g}; ok mismatches "
+              f"{ok_diff}; ok {int(i_k.ok.sum())}/{sub}; max eq_res "
+              f"{float(i_k.eq_res.max()):.3g} (scan {float(i_s.eq_res.max()):.3g})")
+        check(err <= 1e-4 and ok_diff == 0, f"pallas_packed vs scan controller from {where}: "
+              f"u0 {err}, {ok_diff} ok flags differ")
 
 
 def phase_closed_loop(B, dev, seed, mlp, ticks=150):
@@ -683,12 +755,55 @@ def phase_kernels_sweep(lqr, mlp):
     return [k6, k7]
 
 
-# The missions of phase 9: CLI arguments and kernel launches per tick.
+def phase_kernels_packed(res, mlp):
+    """K8 and K9 against their plain versions at B=65536 on the dense QP
+    of the pallas_packed path's state, as its start calls them (zero sig,
+    clip), then timed and bounded. Returns their entries of the kernels
+    line."""
+    dev = res["x0"].device
+    B = res["x0"].shape[0]
+    lin, _ = make_ocp_functions_packed(CFG.ocp, CFG.vehicle, True)
+    st = res["state"]
+    f = forecast(mlp, res["other"], res["xr"], res["x0"], torch.bfloat16)
+    p, dx0 = lin(st.x_bar, st.u_bar, res["xr"], res["ur"], f, res["x0"])
+    args = testing.packed_args(p, dx0, "lqr_start")
+    errs, bad = testing.check_packed(args)
+    print(f"kernel vs plain (K8 + K9, the clipped-LQR start, f32, B={B}, the pallas_packed "
+          f"path's state): {testing.describe(errs)}")
+    check(not bad, f"K8 + K9 vs plain (B={B}): {', '.join(bad)} out of tolerance")
+    bwd, fwd_tail = args[:9], args[9:]
+    plain8 = riccati.riccati_backward_packed_plain
+    plain9 = riccati.riccati_forward_packed_plain
+    K, kf = plain8(*bwd)
+    fwd = (args[6], args[7], args[8], K, kf, *fwd_tail)
+    k8 = entry(
+        "riccati_backward_packed", "riccati_packed.cu", "riccati.py:318",
+        res["launches"]["K8"], errs["max_abs_K8"],
+        cuda_ms(lambda: KERNELS["K8"](*bwd), 10), cuda_ms(lambda: plain8(*bwd), 1),
+        bound_of(B, bwd, (K, kf), plain8, bwd, {}), B,
+    )
+    k9 = entry(
+        "riccati_forward_packed", "riccati_packed.cu", "riccati.py:359",
+        res["launches"]["K9"], errs["max_abs_K9"], cuda_ms(lambda: KERNELS["K9"](*fwd), 10),
+        cuda_ms(lambda: plain9(*fwd), 1), bound_of(B, fwd, plain9(*fwd), plain9, fwd, {}), B,
+    )
+    return [k8, k9]
+
+
+# The missions of phase 9: CLI arguments, the backend they resolve to and
+# the kernel launches per tick. three_qd_ndp flies twice, on the scan
+# controller its "auto" rule picks (no kernel) and on the kernels cold at
+# 12 QP iterations; the one JAX golden holds both.
 MISSIONS = {
-    "three_qd_ndp": (["three_qd_ndp"], {"K3": 1, "K6": 1, "K7": 1, "K4": 12, "K5": 12}),
-    "swarm, deployed": (["swarm", "--formation", "--drones", "65536"], {"K1": 1}),
+    "three_qd_ndp": (["three_qd_ndp"], "jax", {}),
+    "three_qd_ndp, kernels": (
+        ["three_qd_ndp", "--backend", "pallas", "--qp-iters", "12", "--no-warm",
+         "--no-whole-ipm", "--no-bf16", "--no-whole-step"],
+        "pallas", {"K3": 1, "K6": 1, "K7": 1, "K4": 12, "K5": 12}),
+    "swarm, deployed": (["swarm", "--formation", "--drones", "65536"], "pallas", {"K1": 1}),
     "swarm, LQR start": (["swarm", "--formation", "--drones", "65536", "--no-whole-step",
-                          "--no-whole-ipm"], {"K3": 1, "K6": 1, "K7": 1, "K4": 3, "K5": 3}),
+                          "--no-whole-ipm"], "pallas",
+                         {"K3": 1, "K6": 1, "K7": 1, "K4": 3, "K5": 3}),
 }
 
 
@@ -696,11 +811,12 @@ def phase_mission(name, extra=(), n_ticks=None):
     """Fly one mission through `cli.run_mission`, every kernel's count set
     to 0 just before and read just after; check health, the launches per
     tick and, for three_qd_ndp, every tick's controls against the JAX
-    golden; for the swarms the spread of the leaders' RMSE across groups
+    golden (the scan mission, which JAX's kernel controller meets to
+    2.9e-6); for the swarms the spread of the leaders' RMSE across groups
     (they fly the same mission at different anchors)."""
-    argv, per_tick = MISSIONS[name]
+    argv, want_backend, per_tick = MISSIONS[name]
     args = cli.make_parser().parse_args(["mission", *argv, *extra])
-    golden = name == "three_qd_ndp"
+    golden = argv[0] == "three_qd_ndp"
     for fn in KERNELS.values():
         fn.launches = 0
     result, run = cli.run_mission(args, record_traces=golden, n_ticks=n_ticks)
@@ -713,6 +829,8 @@ def phase_mission(name, extra=(), n_ticks=None):
             f"{int(m.ok.sum())}/{m.ok.numel()}; recovered {result['recovered']}; launches "
             + ", ".join(f"{k} {v}" for k, v in launches.items() if v or k in per_tick))
     check(bool(m.ok.all()), f"mission {name}: {int((~m.ok).sum())} drones not ok at the end")
+    check(result["solver"]["backend"] == want_backend,
+          f"mission {name} ran backend {result['solver']['backend']!r}, want {want_backend!r}")
     if golden:
         with np.load(GOLDEN) as g:
             u0_g, pos_g, form_g = g["u0"][:T], g["pos_rmse"], g["form_rmse"]
@@ -759,24 +877,32 @@ def main():
             phase_path(8, dev, args.seed, mlp, "per-iteration", 1, 2)
             phase_compare_sweep(8, dev, args.seed)
             phase_path(8, dev, args.seed, mlp, "per-iteration LQR", 1, 2)
+            phase_compare_packed(8, dev, args.seed)
+            packed = phase_path(8, dev, args.seed, mlp, "pallas_packed", 1, 2)
+            phase_packed_agree(packed, dev, mlp, sub=4)
             phase_closed_loop(8, dev, args.seed, mlp)
             phase_mission("three_qd_ndp", ("--cpu",), n_ticks=3)
+            phase_mission("three_qd_ndp, kernels", ("--cpu",), n_ticks=3)
             print("rehearsal done: no kernel ran, so no result is printed")
             sys.exit(2)
         phase_build()
         compare = phase_compare(4096, dev, args.seed, mlp)
         phase_compare_two_kernel(4096, dev, args.seed, mlp)
         phase_compare_sweep(4096, dev, args.seed)
+        phase_compare_packed(4096, dev, args.seed)
         main_ = phase_path(65536, dev, args.seed, mlp)
         two = phase_path(65536, dev, args.seed, mlp, "two-kernel")
         phase_agree(two, dev, mlp)
         per = phase_path(65536, dev, args.seed, mlp, "per-iteration")
         lqr = phase_path(65536, dev, args.seed, mlp, "per-iteration LQR")
+        packed = phase_path(65536, dev, args.seed, mlp, "pallas_packed")
+        phase_packed_agree(packed, dev, mlp)
         phase_closed_loop(65536, dev, args.seed, mlp)
         kernels = [phase_kernels(main_, compare, mlp)]
         kernels += phase_kernels_two_kernel(two, per, mlp)
         kernels += phase_kernels_sweep(lqr, mlp)
-        del main_, two, per, lqr
+        kernels += phase_kernels_packed(packed, mlp)
+        del main_, two, per, lqr, packed
         for name in MISSIONS:
             phase_mission(name)
         print(json.dumps({"kernels": kernels}))

@@ -16,15 +16,17 @@ prints one JSON line with the tracking / formation RMSE the reference
 returns in its TrackTraj result (`nmpc_node.py:186-200`) and the solver
 configuration as applied.
 
-Runs on the card; `--cpu` runs the kernels' plain versions on the CPU, and
-without a card and without `--cpu` the command fails. Solver defaults, as
-the JAX CLI resolves them: a topology of 512 or more drones on the card runs
-the deployed configuration (dual warm start, 3 QP iterations, bf16
-Jacobians, the one-kernel step with kernel-layout state). Smaller topologies
-and `--cpu` run the kernel controller with `make_episode`'s defaults (cold,
-12 QP iterations, f32 Jacobians, the clipped-LQR start, the per-iteration
-IPM, batch-first state), where the JAX CLI runs its scan controller, which
-is not ported yet (ROADMAP Queue 1 item 8). Flags override either way.
+Runs on the card; `--cpu` runs on the CPU, and without a card and without
+`--cpu` the command fails. The solver resolves as the JAX CLI resolves it
+(`ndp_nmpc_qd_tpu/cli.py:92-115`): a topology of 512 or more drones on the
+card runs the kernels in the deployed configuration (dual warm start, 3 QP
+iterations, bf16 Jacobians, the one-kernel step with kernel-layout state;
+the flags override it). Smaller topologies and `--cpu` run the scan
+controller cold at 12 QP iterations (`--qp-iters` overrides them), where
+the kernel flags do not apply; `--f64 --cpu` runs it in float64.
+`--backend` names the controller in place of that rule (a flag the JAX CLI
+does not have); the defaults then follow the controller it names. The
+result records the backend and the flags as the solver applied them.
 """
 
 from __future__ import annotations
@@ -68,7 +70,7 @@ def run_mission(args, record_traces: bool = False, n_ticks: int | None = None):
     from . import resolve_device
     from .models.downwash_mlp import load_npz
     from .params import NdpNmpcConfig, SimParams
-    from .sim.closed_loop import make_episode
+    from .sim.closed_loop import make_episode, resolve_backend
 
     if args.controller == "thrust":
         raise NotImplementedError(
@@ -94,12 +96,13 @@ def run_mission(args, record_traces: bool = False, n_ticks: int | None = None):
     formation = args.topology == "swarm" and args.formation
     if formation:
         n_total = max(args.drones // 3, 1) * 3
-    deployed = dev.type == "cuda" and n_total >= 512
+    backend = resolve_backend(args.backend, n_total, dev)
+    use_pallas = backend == "pallas"
     if args.qp_iters is None:
-        args.qp_iters = 3 if deployed else 12
+        args.qp_iters = 3 if use_pallas else 12
     for flag in ("warm", "whole_ipm", "bf16", "whole_step"):
         if getattr(args, flag) is None:
-            setattr(args, flag, deployed)
+            setattr(args, flag, use_pallas)
 
     cfg = NdpNmpcConfig(sim=SimParams(k_throttle_true=args.k_true))
     if args.scenario:
@@ -116,8 +119,8 @@ def run_mission(args, record_traces: bool = False, n_ticks: int | None = None):
     solver = dict(
         qp_iters=args.qp_iters, solver_warm_start=args.warm, solver_whole_ipm=args.whole_ipm,
         solver_jac_bf16=args.bf16, solver_packed_state=args.whole_step,
-        solver_whole_step=args.whole_step, recover=args.recover, hold_ticks=args.hold_ticks,
-        record_traces=record_traces, device=dev,
+        solver_whole_step=args.whole_step, solver_backend=backend, recover=args.recover,
+        hold_ticks=args.hold_ticks, record_traces=record_traces, device=dev,
     )
     if formation:
         from .sim.swarm_scale import make_formation_swarm
@@ -164,16 +167,19 @@ def run_mission(args, record_traces: bool = False, n_ticks: int | None = None):
         pr = metrics.pos_rmse.reshape(-1, 3)
         result["pos_rmse_leaders"] = summarize(pr[:, 0])
         result["pos_rmse_followers"] = summarize(pr[:, 1:])
+    # the kernel flags as the solver applied them: the other controllers
+    # have none of them
+    kern = lambda flag: bool(getattr(args, flag)) and use_pallas
     result |= {
         "solver": {
-            "backend": "kernels",
+            "backend": backend,
             "qp_iters": args.qp_iters,
-            "warm": bool(args.warm),
-            "whole_ipm": bool(args.whole_ipm),
-            "bf16": bool(args.bf16),
-            "whole_step": bool(args.whole_step),
-            "lqr_start": not (args.whole_step or args.whole_ipm),
-            "state": "kernel" if args.whole_step else "batch",
+            "warm": kern("warm"),
+            "whole_ipm": kern("whole_ipm"),
+            "bf16": kern("bf16"),
+            "whole_step": kern("whole_step"),
+            "lqr_start": use_pallas and not (args.whole_step or args.whole_ipm),
+            "state": "kernel" if kern("whole_step") else "batch",
         },
         "ok": ok.tolist() if ok.size <= 8 else [bool(ok.all())],
         "recovered": int(metrics.recovered),
@@ -201,7 +207,7 @@ def make_parser():
     mission.add_argument("--k-true", type=float, default=46.0)
     mission.add_argument("--nn", default=None, help="downwash net .npz")
     mission.add_argument("--cpu", action="store_true",
-                         help="run the kernels' plain versions on the CPU")
+                         help="run on the CPU (there every topology flies the scan controller)")
     mission.add_argument("--f64", action="store_true", help="float64 (with --cpu only)")
     for name, hlp in (
         ("warm", "carry QP multipliers across ticks (deployed default: on)"),
@@ -214,6 +220,12 @@ def make_parser():
         mission.add_argument(f"--{name}", dest=dest, action="store_true", default=None, help=hlp)
         mission.add_argument(f"--no-{name}", dest=dest, action="store_false",
                              help=argparse.SUPPRESS)
+    mission.add_argument(
+        "--backend", default="auto", choices=["auto", "pallas", "jax", "pallas_packed"],
+        help="controller: auto (the kernels for 512 drones or more on the card, else the "
+        "scan controller), pallas (the kernels), jax (the scan controller), pallas_packed "
+        "(the dense legacy path)",
+    )
     mission.add_argument("--qp-iters", type=int, default=None,
                          help="IPM iterations (deployed default 3, else 12)")
     mission.add_argument(

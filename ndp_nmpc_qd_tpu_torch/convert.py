@@ -17,6 +17,8 @@ from .estimators.filters import DifferentiatorState
 from .estimators.hover_throttle import HoverThrottleState
 from .sim.closed_loop import EpisodeState
 from .sim.plant import PlantState
+from .solver.ocp import QpData
+from .solver.ocp_packed import PackedQp
 from .solver.rti import RtiState
 from .traj.polyopt import PiecewisePoly
 
@@ -26,16 +28,22 @@ from .traj.polyopt import PiecewisePoly
 mlp_from_numpy = from_numpy
 
 
+def _tensor(a, dev):
+    return torch.tensor(np.ascontiguousarray(np.asarray(a)), device=dev)
+
+
+def _lanes(a, B: int, dev):
+    """A kernel-layout array (s, d, nb, SUB, 128) as (s, d, B), lane padding
+    dropped."""
+    a = np.asarray(a)
+    return _tensor(a.reshape(a.shape[0], a.shape[1], -1)[..., :B], dev)
+
+
 def rti_state_from_numpy(x_bar, u_bar, ipm, B: int, *, device=None) -> RtiState:
     """A JAX kernel-layout `RtiState` ((s, d, nb, SUB, 128) arrays, mu
     (nb, SUB, 128)) as the port's (s, d, B) state, lane padding dropped."""
     dev = resolve_device(device)
-
-    def lanes(a):
-        a = np.asarray(a)
-        a = a.reshape(a.shape[0], a.shape[1], -1)[..., :B]
-        return torch.tensor(np.ascontiguousarray(a), device=dev)
-
+    lanes = lambda a: _lanes(a, B, dev)
     ipm_t = None
     if ipm is not None:
         *duals, mu = ipm
@@ -53,8 +61,18 @@ def rti_batch_state_from_numpy(x_bar, u_bar, ipm, *, device=None) -> RtiState:
     return RtiState(t(x_bar), t(u_bar), None if ipm is None else tuple(t(a) for a in ipm))
 
 
-def _tensor(a, dev):
-    return torch.tensor(np.ascontiguousarray(np.asarray(a)), device=dev)
+def qp_from_numpy(qp, *, device=None) -> QpData:
+    """A JAX `QpData` (numpy fields, batch-first or one scenario) as the
+    port's, in the same dtype."""
+    dev = resolve_device(device)
+    return QpData(*(_tensor(getattr(qp, f), dev) for f in QpData._fields))
+
+
+def packed_qp_from_numpy(p, B: int, *, device=None) -> PackedQp:
+    """A JAX `PackedQp` ((s, d, nb, SUB, 128) numpy fields) as the port's
+    (s, d, B), lane padding dropped."""
+    dev = resolve_device(device)
+    return PackedQp(*(_lanes(getattr(p, f), B, dev) for f in PackedQp._fields))
 
 
 def traj_from_numpy(traj, *, device=None) -> PiecewisePoly:

@@ -19,7 +19,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = ("step_whole", "linearize", "ipm_whole", "riccati_iter", "riccati_sweep")
+SOURCES = (
+    "step_whole", "linearize", "ipm_whole", "riccati_iter", "riccati_sweep", "riccati_packed",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -3,8 +3,8 @@
 Port of `ndp_nmpc_qd_tpu/ops/pallas/riccati_sparse.py` (`riccati_iter_fused`,
 `riccati_sweep_sparse` and their per-stage helpers `_bt_dot`, `_glue_pair`,
 `_terminal_init_core`, `_riccati_stage_core`, `_dyn_step`, `_ratio`,
-`_bound_steps`) and of the 4x4 Cholesky helpers of `ops/pallas/riccati.py`
-(`_chol4`, `_chol4_solve`).
+`_bound_steps`). The 4x4 Cholesky helpers (`chol4`, `chol4_solve`) come
+from `riccati.py`, as the JAX module takes `riccati._chol4`.
 
 - `riccati_iter_fused` is one glue-fused IPM iteration in two launches:
   `riccati_backward_glue` (K4, the TPU's `_backward_kernel_glue`) and
@@ -40,6 +40,7 @@ import torch
 
 from . import _cuda
 from .linearize import NU, NX, stack_rows, tsum
+from .riccati import chol4, chol4_solve
 
 
 class StagePayload(NamedTuple):
@@ -59,44 +60,6 @@ class StagePayload(NamedTuple):
     lxb: list  # N+1 x 3
     uxb: list  # N+1 x 3
     dx0: list  # 10
-
-
-def chol4(R):
-    """Cholesky of a 4x4 SPD matrix; returns (lower L, reciprocal diagonal)."""
-    L = [[None] * 4 for _ in range(4)]
-    Ld = [None] * 4
-    for i in range(4):
-        for j in range(i + 1):
-            s = R[i][j]
-            for t in range(j):
-                s = s - L[i][t] * L[j][t]
-            if i == j:
-                L[i][j] = torch.sqrt(s)
-                Ld[i] = 1.0 / L[i][j]
-            else:
-                L[i][j] = s * Ld[j]
-    return L, Ld
-
-
-def chol4_solve(L_Ld, rhs_cols):
-    """Solve (L L^T) X = rhs for each column (list of 4 elements)."""
-    L, Ld = L_Ld
-    out = []
-    for col in rhs_cols:
-        y = [None] * 4
-        for i in range(4):
-            s = col[i]
-            for t in range(i):
-                s = s - L[i][t] * y[t]
-            y[i] = s * Ld[i]
-        x = [None] * 4
-        for i in reversed(range(4)):
-            s = y[i]
-            for t in range(i + 1, 4):
-                s = s - L[t][i] * x[t]
-            x[i] = s * Ld[i]
-        out.append(x)
-    return out
 
 
 def load_blocks(a40, b30, bc6):

@@ -10,7 +10,7 @@ dataflow of `nmpc_node.py:211-231` and the leader/follower callbacks):
    `nmpc_node.py:160-162`),
 3. the NDP leader's downwash forecast from the follower's previous horizon
    (gated by r_horiz, `ndp_nmpc_leader_node.py:60-76`),
-4. one RTI solve per drone (the batched controller on the port's kernels),
+4. one RTI solve per drone (the batched controller),
 5. live recovery of unhealthy solves, throttle conversion through the
    estimated gain, the hover-throttle estimator tick,
 6. the plant step with ground-truth downwash coupling,
@@ -75,6 +75,17 @@ class EpisodeMetrics(NamedTuple):
     recovered: torch.Tensor  # ()
 
 
+def resolve_backend(solver_backend: str, n_drones: int, device) -> str:
+    """The controller that `make_episode(solver_backend=...)` runs for
+    `n_drones` drones on `device`: "auto" resolves as the JAX rule
+    (`ndp_nmpc_qd_tpu/sim/closed_loop.py:179-184`), to the kernels
+    ("pallas") once the drone batch fills the card (512 drones or more),
+    else to the scan controller ("jax"); any other name stands."""
+    if solver_backend != "auto":
+        return solver_backend
+    return "pallas" if n_drones >= 512 and torch.device(device).type == "cuda" else "jax"
+
+
 def make_episode(
     cfg: NdpNmpcConfig,
     traj: PiecewisePoly,
@@ -119,18 +130,14 @@ def make_episode(
     - `recover` re-seeds unhealthy scenarios and flies the hold command for
       that tick; `ok` then reports last-tick health.
 
-    The controller is the port's kernel controller: `solver_backend` "auto"
-    and "pallas" both select it; "jax" (the scan controller) is ROADMAP
-    Queue 1 item 8 and raises, and so does a sharded episode
-    (`swarm_axis_name` / `swarm_shards` > 1, Queue 1 item 11). The solver
-    flags are `make_batched_rti_controller`'s. Runs on `device`, by default
-    the card.
+    The controller is `make_batched_rti_controller` with `solver_backend`
+    as `resolve_backend` resolves it; the scan controller ("jax") ignores
+    the kernel-path flags (warm start, bf16, whole IPM, packed state, whole
+    step). A sharded episode (`swarm_axis_name` /
+    `swarm_shards` > 1, ROADMAP Queue 1 item 11) raises. The solver flags
+    are `make_batched_rti_controller`'s. Runs on `device`, by default the
+    card.
     """
-    if solver_backend not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"solver_backend={solver_backend!r}: the scan controller is not ported yet "
-            "(ROADMAP Queue 1 item 8); 'auto' and 'pallas' run the port's kernels"
-        )
     if swarm_axis_name is not None or swarm_shards > 1:
         raise NotImplementedError(
             "the sharded episode (swarm_axis_name / swarm_shards > 1) is not ported yet: "
@@ -144,10 +151,15 @@ def make_episode(
         trajs = list(traj)
         traj = stack_trajs([trajs[i % len(trajs)] for i in range(n_drones)])
     traj = PiecewisePoly(*(t.to(dev) for t in traj))
+    solver_backend = resolve_backend(solver_backend, n_drones, dev)
+    if solver_backend != "pallas":
+        # kernel-layout state and the one-kernel step are pallas features
+        solver_packed_state = solver_whole_step = False
     ctl = make_batched_rti_controller(
-        ocp, veh, with_disturbance=True, qp_iters=qp_iters, warm_start=solver_warm_start,
-        jac_bf16=solver_jac_bf16, lqr_start=solver_lqr_start, whole_ipm=solver_whole_ipm,
-        packed_state=solver_packed_state, whole_step=solver_whole_step, device=dev,
+        ocp, veh, with_disturbance=True, qp_iters=qp_iters, backend=solver_backend,
+        warm_start=solver_warm_start, jac_bf16=solver_jac_bf16, lqr_start=solver_lqr_start,
+        whole_ipm=solver_whole_ipm, packed_state=solver_packed_state,
+        whole_step=solver_whole_step, device=dev,
     )
     D, N, S = n_drones, ocp.N_node, n_groups
     assert D % S == 0, (D, S)

@@ -1,8 +1,7 @@
 """Structure-sparse OCP data: the stage payload, its linearizer, and the
 one-kernel control step.
 
-Port of `ndp_nmpc_qd_tpu/solver/ocp.py:59` (`BIG`) and
-`ndp_nmpc_qd_tpu/solver/ocp_sparse.py` (`SparseQp`, `SparseQpConsts`,
+Port of `ndp_nmpc_qd_tpu/solver/ocp_sparse.py` (`SparseQp`, `SparseQpConsts`,
 `make_linearizer_pallas`, `make_whole_step`). The payload's fields and
 their structure are described in the JAX module's docstring.
 """
@@ -18,8 +17,7 @@ from ..ops.kernels.linearize import linearize_stage_data
 from ..ops.kernels.step_whole import control_step_whole
 from ..ops.layout import pack
 from ..params import OcpParams, VehicleParams
-
-BIG = 1e9  # stands in for +-inf on masked bounds (state box at nodes 0 and N)
+from .ocp import BIG
 
 
 class SparseQp(NamedTuple):

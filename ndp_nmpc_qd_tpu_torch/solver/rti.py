@@ -1,9 +1,11 @@
-"""SQP-RTI controller on the port's kernels.
+"""SQP-RTI controller: the scan controller and the controllers on the
+port's kernels.
 
 Port of `ndp_nmpc_qd_tpu/solver/rti.py` (`RtiState`, `RtiInfo`,
-`RtiController`, `unpack_iterates` and the pallas-backend branches of
-`make_batched_rti_controller`). Semantics mirror the reference controller
-(`nmpc_ctl/nmpc_body_rate_ctl.py`):
+`RtiController`, `unpack_iterates`, `make_rti_controller` and every backend
+of `make_batched_rti_controller`: "jax", the scan controller; "pallas", the
+structure-sparse kernels; "pallas_packed", the legacy dense kernels).
+Semantics mirror the reference controller (`nmpc_ctl/nmpc_body_rate_ctl.py`):
 
 - `reset(xr, ur)` seeds every shooting-node iterate with the reference and
   marks every scenario's QP duals cold (`mu = -1`), killing warm starts
@@ -31,7 +33,11 @@ from .. import const, resolve_device
 from ..ops.kernels import ipm_whole, step_whole
 from ..ops.layout import pack, unpack
 from ..params import OcpParams, VehicleParams
+from .ocp import make_ocp_functions
+from .ocp_packed import make_ocp_functions_packed
 from .ocp_sparse import make_linearizer, make_whole_step
+from .qp_ipm import solve_qp
+from .qp_ipm_packed import ipm_packed
 from .qp_ipm_sparse import IpmWarm, cold_warm, ipm_sparse
 
 
@@ -100,6 +106,56 @@ def first_control_and_health(
     return u0, torch.isfinite(eq_res) & (eq_res < eq_tol) & in_box
 
 
+def _scan_update(ocp: OcpParams, linearize_horizon, qp_iters, eq_tol, mehrotra):
+    """One RTI tick of the scan controller on a batch-first state."""
+
+    def update(state: RtiState, x0, xr, ur, f_dist=None):
+        qp = linearize_horizon(state.x_bar, state.u_bar, xr, ur, f_dist)
+        dx0 = x0.to(state.x_bar.dtype) - state.x_bar[:, 0]
+        sol = solve_qp(qp, dx0, num_iters=qp_iters, mehrotra=mehrotra)
+        new_state = RtiState(state.x_bar + sol.dx, state.u_bar + sol.du)
+        u0, ok = first_control_and_health(
+            ocp, new_state.x_bar, new_state.u_bar, sol.eq_res, eq_tol, layout="batch")
+        return u0, new_state, RtiInfo(mu=sol.mu, eq_res=sol.eq_res, ok=ok)
+
+    return update
+
+
+def make_rti_controller(
+    ocp: OcpParams,
+    vehicle: VehicleParams,
+    *,
+    with_disturbance: bool = False,
+    qp_iters: int = 12,
+    eq_tol: float = 1e-3,
+    mehrotra: bool = False,
+    device=None,
+) -> RtiController:
+    """The scan controller for one scenario: `reset(xr, ur)` and
+    `update(state, x0, xr, ur, f_dist=None)` on unbatched tensors (x_bar
+    (N+1, 10), u_bar (N, 4), x0 (10,)), as the JAX `make_rti_controller`.
+    Plain tensor code (`ocp.make_ocp_functions`, `qp_ipm.solve_qp`; with
+    `mehrotra` the predictor-corrector IPM), in the dtype of the state.
+    Runs on `device`, by default the card."""
+    dev = resolve_device(device)
+    linearize_horizon, _ = make_ocp_functions(ocp, vehicle, with_disturbance)
+    batched = _scan_update(ocp, linearize_horizon, qp_iters, eq_tol, mehrotra)
+
+    def reset(xr, ur) -> RtiState:
+        return RtiState(torch.as_tensor(xr, device=dev), torch.as_tensor(ur, device=dev))
+
+    def update(state: RtiState, x0, xr, ur, f_dist=None):
+        dt = state.x_bar.dtype
+        one = lambda a: None if a is None else torch.as_tensor(a, dtype=dt, device=dev)[None]
+        u0, st, info = batched(
+            RtiState(state.x_bar[None], state.u_bar[None]), one(x0), one(xr), one(ur),
+            one(f_dist) if with_disturbance else None,
+        )
+        return u0[0], RtiState(st.x_bar[0], st.u_bar[0]), RtiInfo(*(t[0] for t in info))
+
+    return RtiController(reset, update, ocp, vehicle, with_disturbance, device=dev)
+
+
 def make_batched_rti_controller(
     ocp: OcpParams,
     vehicle: VehicleParams,
@@ -115,10 +171,21 @@ def make_batched_rti_controller(
     whole_ipm: bool = False,
     packed_state: bool = False,
     whole_step: bool = False,
+    mehrotra: bool = False,
     device=None,
 ) -> RtiController:
-    """Batch-first RTI controller on the port's kernels (the JAX package's
-    pallas backend).
+    """Batch-first RTI controller. `backend` names the JAX package's:
+
+    - "jax": the scan controller, `make_rti_controller` over the batch
+      (plain tensor code; `mehrotra` selects the predictor-corrector IPM).
+      The kernel flags do not apply to it and are ignored, as in JAX.
+    - "pallas_packed": the legacy dense path, cold: the dense linearizer
+      (`ocp_packed`) and `ipm_packed`, one K8 + K9 sweep for the
+      clipped-LQR start and one per IPM iteration; batch-first state. It
+      ignores `warm_start`, `jac_bf16`, `lqr_start` and `whole_ipm`, as in
+      JAX, and refuses `packed_state`.
+    - "pallas" (and "auto", which in the port always means the kernels):
+      the structure-sparse kernels, below.
 
     - `packed_state=True, whole_step=True`: the whole step in one launch
       (K1), which implies the zero-control start, so `lqr_start` and
@@ -136,26 +203,64 @@ def make_batched_rti_controller(
       and unpacks the deltas every tick. The port does not pad B.
 
     `warm_start` carries the QP duals across ticks; `jac_bf16` stores the
-    curvature payloads in bfloat16. Not ported yet, and raising: the scan
-    and legacy dense backends and `fused_lin=False`.
+    curvature payloads in bfloat16. Not ported yet, and raising:
+    `fused_lin=False`.
 
     Runs on `device`, by default the card; without a card and without an
     explicit device it raises.
     """
-    if backend not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported yet: the scan controller is "
-            "ROADMAP Queue 1 item 8, the legacy dense kernels Queue 2 K8+K9"
-        )
+    if backend not in ("auto", "pallas", "jax", "pallas_packed"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if qp_iters < 1:
+        raise ValueError(f"qp_iters must be >= 1, got {qp_iters}")
+    dev = resolve_device(device)
+
+    def as_input(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    def reset_plain(xr, ur) -> RtiState:
+        xr = torch.as_tensor(xr, device=dev)
+        return RtiState(xr, torch.as_tensor(ur, device=dev).to(xr.dtype))
+
+    if backend == "jax":
+        linearize_horizon, _ = make_ocp_functions(ocp, vehicle, with_disturbance)
+        scan = _scan_update(ocp, linearize_horizon, qp_iters, eq_tol, mehrotra)
+
+        def update_scan(state: RtiState, x0, xr, ur, f_dist=None):
+            dt = state.x_bar.dtype
+            f_dist = as_input(f_dist, dt) if with_disturbance and f_dist is not None else None
+            return scan(state, as_input(x0, dt), as_input(xr, dt), as_input(ur, dt), f_dist)
+
+        return RtiController(reset_plain, update_scan, ocp, vehicle, with_disturbance,
+                             device=dev)
+
+    if backend == "pallas_packed":
+        if packed_state:
+            raise ValueError("packed_state requires the structure-sparse kernels "
+                             "(backend='pallas')")
+        linearize_dense, _ = make_ocp_functions_packed(ocp, vehicle, with_disturbance)
+
+        def update_dense(state: RtiState, x0, xr, ur, f_dist=None):
+            dt = state.x_bar.dtype
+            f_dist = as_input(f_dist, dt) if with_disturbance and f_dist is not None else None
+            qp, dx0_p = linearize_dense(state.x_bar, state.u_bar, as_input(xr, dt),
+                                        as_input(ur, dt), f_dist, as_input(x0, dt))
+            zx, zu, mu, eq = ipm_packed(qp, dx0_p, num_iters=qp_iters)
+            new_state = RtiState(state.x_bar + unpack(zx, (zx.shape[1],)),
+                                 state.u_bar + unpack(zu, (zu.shape[1],)))
+            u0, ok = first_control_and_health(
+                ocp, new_state.x_bar, new_state.u_bar, eq, eq_tol, layout="batch")
+            return u0, new_state, RtiInfo(mu=mu, eq_res=eq, ok=ok)
+
+        return RtiController(reset_plain, update_dense, ocp, vehicle, with_disturbance,
+                             device=dev)
+
     if not fused_lin:
         raise NotImplementedError(
             "fused_lin=False (the jnp sparse linearizer) is not ported yet: "
             "ROADMAP Queue 1 item 10"
         )
     one_kernel = packed_state and whole_step
-    if qp_iters < 1:
-        raise ValueError(f"qp_iters must be >= 1, got {qp_iters}")
-    dev = resolve_device(device)
     N = ocp.N_node
     workspaces = {}
 
@@ -166,9 +271,6 @@ def make_batched_rti_controller(
         if B not in workspaces:
             workspaces[B] = make(B)
         return workspaces[B]
-
-    def as_input(a, dtype):
-        return torch.as_tensor(a, dtype=dtype, device=dev)
 
     def reset_packed(xr, ur) -> RtiState:
         xr = torch.as_tensor(xr, device=dev)

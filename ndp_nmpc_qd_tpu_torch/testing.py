@@ -236,3 +236,77 @@ def check_sweep(args, hold, consts):
     errs = {**e6, **e7, "max_abs_K6": e6["max_abs"], "max_abs_K7": e7["max_abs"]}
     errs["max_abs"] = max(e6["max_abs"], e7["max_abs"])
     return errs, bad6 + bad7
+
+
+def dense_payload(cfg, B, device, seed):
+    """The dense payload (`PackedQp`) and dx0 (1,10,B) of `kernel_inputs`'
+    linearization point, as the pallas_packed controller's linearizer makes
+    them (f32); cfg is an `NdpNmpcConfig`."""
+    from .solver.ocp_packed import make_ocp_functions_packed
+
+    lin, _ = make_ocp_functions_packed(cfg.ocp, cfg.vehicle, True)
+    xb, ub, xr, ur, fd, x0 = kernel_inputs(B, cfg.ocp.N_node, device, seed,
+                                           gravity=cfg.vehicle.gravity)
+    bf = lambda t: t.permute(2, 0, 1)  # (s, d, B) -> (B, s, d)
+    return lin(bf(xb), bf(ub), bf(xr), bf(ur), bf(fd), bf(x0)[:, 0])
+
+
+def packed_args(p, dx0_p, call, seed=0, jitter=0.01):
+    """The 12 arguments of `riccati_sweep_packed` over the dense payload p
+    (a `PackedQp`) and dx0_p (1,10,B), in the two ways `ipm_packed` calls
+    it: "lqr_start" (zero sig, the controls clipped to the box less a 1e-3
+    margin) and "newton" (its first iteration's Newton system: the
+    clipped-LQR start, moved by `jitter` (normal) so that the defects rhat
+    are well above rounding level, the slacks and duals of its start, sig
+    and the gradient corrections from `ipm_corr_terms`, no clip). The start
+    is made with the plain versions, so no kernel launch is counted."""
+    from .ops.kernels.riccati import riccati_backward_packed_plain, riccati_forward_packed_plain
+    from .solver.qp_ipm import ipm_corr_terms, ipm_slack_init
+    from .solver.qp_ipm_packed import _matvec
+
+    N = p.a.shape[0]
+    zeros = torch.zeros_like
+    margin = 1e-3 * (p.uu - p.lu)
+    lqr = (p.hxx, zeros(p.gx), p.huu, zeros(p.gu), p.gx, p.gu, p.a, p.b, p.r, dx0_p,
+           p.lu + margin, p.uu - margin)
+    if call == "lqr_start":
+        return lqr
+    K, kf = riccati_backward_packed_plain(*lqr[:9])
+    zx, zu = riccati_forward_packed_plain(p.a, p.b, p.r, K, kf, dx0_p, *lqr[10:])
+    g = torch.Generator().manual_seed(seed)
+    zx, zu = (z + jitter * torch.randn(z.shape, generator=g, dtype=z.dtype).to(z.device)
+              for z in (zx, zu))
+    su_lo, su_up = ipm_slack_init(p.lu, p.uu, zu, 1e-3)
+    sx_lo, sx_up = ipm_slack_init(p.lx, p.ux, zx[:, 3:6], 1e-3)
+    mu = torch.ones_like(p.gx[0, 0])
+    sig_u, corr_u, *_ = ipm_corr_terms(zu, p.lu, p.uu, su_lo, su_up, 1 / su_lo, 1 / su_up, mu)
+    sig_x3, corr_x, *_ = ipm_corr_terms(zx[:, 3:6], p.lx, p.ux, sx_lo, sx_up, 1 / sx_lo,
+                                        1 / sx_up, mu)
+    sig_x = torch.cat([zeros(zx[:, :3]), sig_x3, zeros(zx[:, 6:])], dim=1)
+    gx = p.gx + _matvec(p.hxx, zx, 10, 10)
+    ghat_x = torch.cat([gx[:, :3], gx[:, 3:6] + corr_x, gx[:, 6:]], dim=1)
+    ghat_u = p.gu + _matvec(p.huu, zu, 4, 4) + corr_u
+    rhat = _matvec(p.a, zx[:N], 10, 10) + _matvec(p.b, zu, 10, 4) + p.r - zx[1:]
+    return (p.hxx, sig_x, p.huu, sig_u, ghat_x, ghat_u, p.a, p.b, rhat, dx0_p - zx[:1],
+            None, None)
+
+
+def check_packed(args):
+    """K8 and K9 on the card against their plain versions on the same
+    inputs (`packed_args`); K9 gets the plain backward sweep's gains on both
+    sides, so each kernel is held alone. Every output is "primal". Returns
+    ({name: error} with max_abs_K8/_K9 beside max_abs, out of tolerance)."""
+    from .ops.kernels import riccati as rc
+
+    bwd, dx0, lo, hi = args[:9], args[9], args[10], args[11]
+    got = rc.riccati_backward_packed(*bwd)
+    ref = rc.riccati_backward_packed_plain(*bwd)
+    e8, bad8 = compare({n: ("primal", g, r) for n, g, r in zip(("K", "kf"), got, ref)})
+    K, kf = ref
+    a, b, r = bwd[6], bwd[7], bwd[8]
+    got = rc.riccati_forward_packed(a, b, r, K, kf, dx0, lo, hi)
+    ref = rc.riccati_forward_packed_plain(a, b, r, K, kf, dx0, lo, hi)
+    e9, bad9 = compare({n: ("primal", g, r_) for n, g, r_ in zip(("dx", "du"), got, ref)})
+    errs = {**e8, **e9, "max_abs_K8": e8["max_abs"], "max_abs_K9": e9["max_abs"]}
+    errs["max_abs"] = max(e8["max_abs"], e9["max_abs"])
+    return errs, bad8 + bad9

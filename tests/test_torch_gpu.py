@@ -12,8 +12,9 @@ at their own scale (one bf16 ulp of a Jacobian entry may flip). Both: `ok`
 identical.
 
 The two-kernel path's kernels (K3 linearization, K2 whole IPM with and
-without the folded axpy, K4/K5 one glue-fused IPM iteration) are held at
-the tolerances of `ndp_nmpc_qd_tpu_torch/testing.py`: iterates, directions,
+without the folded axpy, K4/K5 one glue-fused IPM iteration), K6/K7 and the
+legacy dense path's K8/K9 are held at the tolerances of
+`ndp_nmpc_qd_tpu_torch/testing.py`: iterates, directions,
 gains and the f32 payload atol 1e-4 of max(1, max|ref|); duals, their
 directions, mu and comp4 rtol 1e-3 at their own scale; eq_res and res2
 rtol 1e-3 above a floor 1e-6; the bf16 curvature payload within 2^-8 of
@@ -25,7 +26,9 @@ import pytest
 import torch
 
 from ndp_nmpc_qd_tpu_torch import testing
-from ndp_nmpc_qd_tpu_torch.ops.kernels import ipm_whole, linearize, riccati_sparse, step_whole
+from ndp_nmpc_qd_tpu_torch.ops.kernels import (
+    ipm_whole, linearize, riccati, riccati_sparse, step_whole,
+)
 from ndp_nmpc_qd_tpu_torch.ops.layout import pack
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
 from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import ipm_consts, lin_consts, whole_step_consts
@@ -155,4 +158,25 @@ def test_sweep_kernels_match_plain_on_the_card(jac_bf16, call):
     errs, bad = testing.check_sweep(args, hold, ic)
     torch.cuda.synchronize()
     assert not bad, f"K6/K7 ({call}): {bad} out of tolerance: {testing.describe(errs)}"
+    assert counts() == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call", ["lqr_start", "newton"])
+def test_packed_kernels_match_plain_on_the_card(call):
+    """K8 and K9 (`riccati_sweep_packed`, f32) in both ways `ipm_packed`
+    calls them, on the dense payload of the legacy packed path, at the
+    tolerances of `testing.check_packed`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    cfg = NdpNmpcConfig()
+    B = 300  # not a multiple of the 128-thread block
+    p, dx0 = testing.dense_payload(cfg, B, dev, seed=4)
+    counts = lambda: (riccati.riccati_backward_packed.launches,
+                      riccati.riccati_forward_packed.launches)
+    before = counts()
+    errs, bad = testing.check_packed(testing.packed_args(p, dx0, call))
+    torch.cuda.synchronize()
+    assert not bad, f"K8/K9 ({call}): {bad} out of tolerance: {testing.describe(errs)}"
     assert counts() == (before[0] + 1, before[1] + 1)

@@ -151,18 +151,45 @@ def test_sweep_wrappers_take_the_plain_versions_on_cpu_tensors():
         riccati_sparse.riccati_sweep_backward(*(t.to("meta") for t in args[:13]), **kw)
 
 
-@pytest.mark.parametrize("bad", [dict(solver_backend="jax"), dict(swarm_shards=2)])
+@pytest.mark.parametrize("bad", [dict(swarm_axis_name="x"), dict(swarm_shards=2)])
 def test_unported_ipm_options_raise(bad):
     """The episode's options that are not ported yet raise, naming their
-    ROADMAP item: the scan controller (`solver_backend="jax"`, Queue 1
-    item 8) and the sharded episode (Queue 1 item 11). The per-iteration
-    IPM's clipped-LQR start and unfused glue, which raised here before
-    K6+K7 were ported, run now (`test_torch_riccati_sweep.py`)."""
+    ROADMAP item: the sharded episode, by its mesh axis name or its shard
+    count (Queue 1 item 11). The per-iteration IPM's clipped-LQR start and
+    unfused glue and the scan controller (`solver_backend="jax"`), which
+    raised here before they were ported, run now
+    (`test_torch_riccati_sweep.py`, `test_torch_scan_controller.py`)."""
     from ndp_nmpc_qd_tpu_torch.cli import build_eight
     from ndp_nmpc_qd_tpu_torch.sim.closed_loop import make_episode
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         make_episode(NdpNmpcConfig(), build_eight(), n_drones=2, device="cpu", **bad)
+
+
+def test_packed_wrappers_take_the_plain_versions_on_cpu_tensors():
+    """K8 and K9 return exactly their plain versions' results for CPU
+    tensors, in both call shapes, count no launch, and refuse other
+    devices."""
+    from ndp_nmpc_qd_tpu_torch.ops.kernels import riccati
+
+    p, dx0 = testing.dense_payload(NdpNmpcConfig(), 3, "cpu", seed=0)
+    wrappers = (riccati.riccati_backward_packed, riccati.riccati_forward_packed)
+    before = [w.launches for w in wrappers]
+    for call in ("lqr_start", "newton"):
+        args = testing.packed_args(p, dx0, call)
+        K, kf = riccati.riccati_backward_packed_plain(*args[:9])
+        want = riccati.riccati_forward_packed_plain(*args[6:9], K, kf, *args[9:])
+        got = riccati.riccati_sweep_packed(*args[:10], clip_lo=args[10], clip_hi=args[11])
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+        for g, r in zip(riccati.riccati_backward_packed(*args[:9]), (K, kf)):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert [w.launches for w in wrappers] == before
+    meta = [t.to("meta") for t in args[:10]]
+    with pytest.raises(ValueError, match="unsupported device"):
+        riccati.riccati_backward_packed(*meta[:9])
+    with pytest.raises(ValueError, match="unsupported device"):
+        riccati.riccati_forward_packed(*meta[6:9], K.to("meta"), kf.to("meta"), meta[9])
 
 
 @pytest.mark.parametrize("argv", [["serve"], ["mission", "one_qd", "--cpu", "--f64",

@@ -136,12 +136,14 @@ def test_whole_step_controller_matches_jax():
 
 @pytest.mark.parametrize("bad", [
     dict(cli=["mission", "three_qd", "--cpu", "--controller", "thrust"]), dict(fused_lin=False),
-    dict(backend="jax"), dict(backend="pallas_packed"),
+    dict(cli=["simnode"]), dict(cli=["send"]),
 ])
 def test_unported_combinations_raise(bad):
-    """Controller options that are not ported yet raise, naming their
-    ROADMAP item; so does the mission CLI's thrust controller. (The
-    per-iteration path's clipped-LQR start, once a case here, runs now.)"""
+    """Options that are not ported yet raise, naming their ROADMAP item:
+    the jnp sparse linearizer (`fused_lin=False`), the mission CLI's thrust
+    controller and the runtime daemons `simnode` and `send`. (The
+    per-iteration path's clipped-LQR start and the scan and legacy dense
+    backends, once cases here, run now.)"""
     if "cli" in bad:
         from ndp_nmpc_qd_tpu_torch.cli import main
 

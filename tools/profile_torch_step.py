@@ -2,14 +2,16 @@
 device time.
 
 Runs each controller path of `chip_smoke.py` (bf16 downwash forecast + one
-RTI update, warm start, qp_iters=3, bf16 Jacobians): the one-kernel step
-(K1), the two-kernel path (K3 + K2) and the per-iteration paths (K3, K6 +
-K7 from the clipped-LQR start, then K4 + K5 per IPM iteration), at B=65536
-on one CUDA card for 10 ticks each under `torch.profiler`; then each
-mission of `chip_smoke.py` phase 9 through `cli.run_mission` for 30 ticks
-(10 hold, 20 tracking; one unprofiled run first). Prints per path and
-mission the device time per kernel name, the wall time per tick and the
-device's busy share of it.
+RTI update): the one-kernel step (K1), the two-kernel path (K3 + K2) and
+the per-iteration paths (K3, K6 + K7 from the clipped-LQR start, then K4 +
+K5 per IPM iteration), warm start, qp_iters=3, bf16 Jacobians; and the
+legacy dense path (`backend="pallas_packed"`, cold@12, f32: the dense
+linearization, then 13 K8 + K9 sweeps), at B=65536 on one CUDA card for 10
+ticks each under `torch.profiler`; then each mission of `chip_smoke.py`
+phase 9 through `cli.run_mission` for 30 ticks (10 hold, 20 tracking; one
+unprofiled run first): `three_qd_ndp` on the scan controller and on the
+kernels (cold@12, the clipped-LQR start), the swarms on the kernels. Prints per path and mission the device time per kernel
+name, the wall time per tick and the device's busy share of it.
 
     python3 tools/profile_torch_step.py
 """
@@ -61,7 +63,7 @@ def profile_mission(name, smi, ticks=30):
     """The mission's first `ticks` ticks (a third holding, the rest
     tracking); the wall time per tick is `run_mission`'s, which leaves out
     the episode's set-up, the device time includes it."""
-    argv, _ = MISSIONS[name]
+    argv = MISSIONS[name][0]
     hold = ticks // 3
     args = lambda: cli.make_parser().parse_args(
         ["mission", *argv, "--hold-ticks", str(hold),

@@ -15,13 +15,14 @@ resolves it.
       `chip_smoke.py` holds the port's mission on the card against it.
   python tools/validate_port_mission.py [--ticks 4]
       Runs the first ticks of the same mission on the CPU in both packages
-      (the port's plain versions, the JAX scan controller) and against the
-      golden, and prints the max control deviation beside the 1e-3 bound.
-      Exits non-zero past the bound.
+      (each CLI resolves a 3-drone topology to its scan controller) and
+      against the golden, and prints the max control deviation beside the
+      1e-3 bound. Exits non-zero past the bound.
 
-The scan controller is a fair reference for the port's kernel controller:
-the JAX package's own cross-backend check (`tools/validate_backends.py`)
-found 2.9e-6 between its scan and kernel controllers over this mission.
+On the card the port's CLI resolves this topology to its scan controller
+too, so `chip_smoke.py` holds like against like. The JAX package's own
+cross-backend check (`tools/validate_backends.py`) found 2.9e-6 between
+its scan and kernel controllers over this mission.
 """
 
 import argparse
@@ -66,7 +67,8 @@ def jax_mission(n_ticks):
 
 
 def port_mission(n_ticks, track_secs):
-    """The port's mission through its CLI on the CPU: (result, traces)."""
+    """The port's mission through its CLI on the CPU (its scan controller):
+    (result, traces)."""
     import torch
 
     from ndp_nmpc_qd_tpu_torch import cli
