@@ -7,7 +7,10 @@ Phases, one line each; any failure exits non-zero before the last line:
 1. device: the card's name and count, then the line
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives.
 2. build: nvcc of every kernel source (one process each, all started
-   together), with ptxas' registers, stack and spills per kernel.
+   together), with ptxas' registers, stack and spills per kernel, and for
+   K1 and K2 (a team of lanes a scenario) their dynamic shared memory a
+   block, their launch geometry held against its Python mirror
+   (`_cuda.team_geometry`).
 3. kernel vs plain, B=4096, f32 and bf16 payloads, at the tolerances stated
    in `check_pair` and `ndp_nmpc_qd_tpu_torch/testing.py`:
    a. K1, the fused control step, 3 chained ticks (cold, then warm), every
@@ -46,7 +49,8 @@ Phases, one line each; any failure exits non-zero before the last line:
 8. kernels: each kernel against its plain version once more at B=65536 on
    the state its path left (the deployed bf16 payload), then one JSON line,
    each hand-written kernel with its launches on its path, time, bound,
-   plain-version time and error against it.
+   plain-version time and error against it (K1 and K2 also with their lanes
+   a scenario, scenarios and shared memory a block, and bound share).
 9. missions through the port's CLI (`cli.run_mission`), 200 hold ticks and
    16 s of the figure-eight (1000 ticks), recovery on:
    a. `three_qd_ndp` (3 drones: the scan controller cold@12, as the JAX
@@ -88,7 +92,7 @@ from ndp_nmpc_qd_tpu_torch.models.quadrotor import (
 from ndp_nmpc_qd_tpu_torch.ops.integrators import make_discrete_dynamics
 from ndp_nmpc_qd_tpu_torch import testing
 from ndp_nmpc_qd_tpu_torch.ops.kernels import (
-    _build, ipm_whole, linearize, riccati, riccati_sparse, step_whole,
+    _build, _cuda, ipm_whole, linearize, riccati, riccati_sparse, step_whole,
 )
 from ndp_nmpc_qd_tpu_torch.ops.layout import pack
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
@@ -215,13 +219,34 @@ def ptxas_summary(log):
     return " | ".join(out)
 
 
+TEAM_KERNELS = {"step_whole": step_whole, "ipm_whole": ipm_whole}  # K1, K2
+
+
+def team_smem(mod):
+    """The dynamic shared memory of a team kernel (K1, K2) at B=65536, held
+    against the Python mirror of its geometry for both payloads and a few
+    batch sizes."""
+    for B in (1, 301, 4096, 65535, 65536):
+        for jac_bf16 in (False, True):
+            got = mod.geometry(B, N, jac_bf16)
+            want = _cuda.team_geometry(B, N, jac_bf16)
+            check(got == want, f"{mod.__name__} geometry at B={B}: C {got}, Python {want}")
+    return "; ".join(
+        f"dynamic shared memory ({tag} payload, B=65536) {g['scenarios_per_block']} scenarios x "
+        f"{g['slot_bytes']} B = {g['smem_bytes_per_block']} B a block, "
+        f"{g['threads_per_scenario']} lanes a scenario"
+        for tag, g in (("bf16", mod.geometry(65536, N, True)),
+                       ("f32", mod.geometry(65536, N, False))))
+
+
 def phase_build():
     t0 = time.perf_counter()
     _build.build()
     wall = time.perf_counter() - t0
     for name, info in _build.build_info.items():
+        smem = f"; {team_smem(TEAM_KERNELS[name])}" if name in TEAM_KERNELS else ""
         print(f"build: {name}.cu in {info['seconds']:.1f} s (wall {wall:.1f} s, "
-              f"cached={info['cached']}); ptxas: {ptxas_summary(info['log'])}")
+              f"cached={info['cached']}); ptxas: {ptxas_summary(info['log'])}{smem}")
 
 
 def scaled_err(a, b):
@@ -291,11 +316,10 @@ def run_pair(B, dev, jac_bf16, seed, mlp, ticks=3):
     ins = (pack(xr), pack(ur), pack(fd), pack(x0[:, None]))
     k = [pack(xr).clone(), pack(ur).clone(), *cold_warm(N, B, torch.float32, dev)]
     p = [t.clone() for t in k]
-    ws = step_whole.make_workspace(B, N, jac_bf16, dev) if dev.type == "cuda" else None
     tag = "bf16" if jac_bf16 else "f32"
     worst = {}
     for tick in range(ticks):
-        eq_k = step_whole.control_step_whole(k[0], k[1], *ins, *k[2:], workspace=ws, **consts)
+        eq_k = step_whole.control_step_whole(k[0], k[1], *ins, *k[2:], **consts)
         outs = step_whole.control_step_whole_plain(p[0], p[1], *ins, *p[2:], **consts)
         for dst, src in zip(p, outs[:7]):
             dst.copy_(src)
@@ -381,7 +405,6 @@ def phase_compare_two_kernel(B, dev, seed, mlp):
     against their plain versions on the same inputs, f32 and bf16 payloads;
     then the one-kernel step against the two-kernel path in f32."""
     ic = ipm_consts(CFG.ocp, num_iters=3)
-    ws = ipm_whole.make_workspace(B, N, dev)
     for jac_bf16 in (False, True):
         tag = "bf16" if jac_bf16 else "f32"
         lc = lin_consts(CFG.ocp, CFG.vehicle, True, jac_bf16=jac_bf16)
@@ -390,7 +413,7 @@ def phase_compare_two_kernel(B, dev, seed, mlp):
         lines = {"K3": (errs, bad)}
         for name, xu in (("K2, 3 chained solves", None), ("K2 with the axpy fold", ins[:2])):
             lines[name] = testing.check_ipm_whole(
-                qp, cold_warm(N, B, torch.float32, dev), ic, xu=xu, workspace=ws)
+                qp, cold_warm(N, B, torch.float32, dev), ic, xu=xu)
         lines["K4 + K5"] = testing.check_iter(testing.iter_args(qp, ic), ic)
         for name, (errs, bad) in lines.items():
             print(f"kernel vs plain ({name}, {tag} payload, B={B}): {testing.describe(errs)}")
@@ -587,6 +610,16 @@ def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound, B,
                 B=B, **extra)
 
 
+def team_fields(mod, B, ms, bound):
+    """The kernels-line fields of a team kernel (K1, K2): its geometry at
+    this run's B with the deployed bf16 payload and its share of its bound."""
+    g = mod.geometry(B, N, True)
+    return dict(threads_per_scenario=g["threads_per_scenario"],
+                scenarios_per_block=g["scenarios_per_block"],
+                smem_bytes_per_block=g["smem_bytes_per_block"],
+                bound_share=bound["bound_ms"] / ms)
+
+
 def phase_kernels(main, compare, mlp):
     """Hold K1 against its plain version at the main path's size, on the
     main path's state and inputs with the deployed bf16 payload, then time
@@ -599,13 +632,12 @@ def phase_kernels(main, compare, mlp):
     ins = (pack(main["xr"]), pack(main["ur"]), pack(f), pack(main["x0"][:, None]))
     k_state = [st.x_bar.clone(), st.u_bar.clone(), *[t.clone() for t in st.ipm]]
     p_state = [t.clone() for t in k_state]
-    ws = step_whole.make_workspace(B, N, True, dev)
     plain = step_whole.control_step_whole_plain
     plain_args = (*p_state[:2], *ins, *p_state[2:])
 
     def run_kernel():
         return step_whole.control_step_whole(k_state[0], k_state[1], *ins, *k_state[2:],
-                                             workspace=ws, **consts)
+                                             **consts)
 
     eq_k = run_kernel()
     outs = plain(*plain_args, **consts)
@@ -624,6 +656,7 @@ def phase_kernels(main, compare, mlp):
         max(e[n] for n in STATE), ms, plain_ms, bound, B,
         launches_per_tick=main["launches"]["K1"] / main["ticks"], u0_abs_err=e["u0"],
         max_abs_err_f32_payload=max(compare["f32"][n] for n in STATE),
+        **team_fields(step_whole, B, ms, bound),
     )
 
 
@@ -664,20 +697,20 @@ def phase_kernels_two_kernel(two, per, mlp):
     )
 
     # K2 with the axpy folded, as the two-kernel path runs it
-    ws = ipm_whole.make_workspace(B, N, dev)
     xu = (st2.x_bar, st2.u_bar)
-    errs, bad = testing.check_ipm_whole(qp2, st2.ipm, ic, xu=xu, calls=1, workspace=ws)
+    errs, bad = testing.check_ipm_whole(qp2, st2.ipm, ic, xu=xu, calls=1)
     err2 = checked("K2 with the axpy fold, one solve from the two-kernel path's state", errs, bad)
     kd = [t.clone() for t in st2.ipm]
     kx = [t.clone() for t in xu]
     plain2 = ipm_whole.riccati_ipm_whole_plain
     args2 = (*qp2[:11], *st2.ipm, qp2[11], *xu)
     eq = torch.empty(B, device=dev)
+    ms2 = cuda_ms(lambda: KERNELS["K2"](*qp2[:11], *kd, qp2[11], *kx, **ic), 10)
+    bound2 = bound_of(B, args2, (*xu, *st2.ipm, eq), plain2, args2, ic)
     k2 = entry(
         "riccati_ipm_whole", "ipm_whole.cu", "ipm_whole.py:459", two["launches"]["K2"], err2,
-        cuda_ms(lambda: KERNELS["K2"](*qp2[:11], *kd, qp2[11], *kx, workspace=ws, **ic), 10),
-        cuda_ms(lambda: plain2(*args2, **ic), 1),
-        bound_of(B, args2, (*xu, *st2.ipm, eq), plain2, args2, ic), B,
+        ms2, cuda_ms(lambda: plain2(*args2, **ic), 1), bound2, B,
+        **team_fields(ipm_whole, B, ms2, bound2),
     )
 
     # K4 and K5 at the per-iteration path's start, its carried duals mixed in

@@ -1,6 +1,7 @@
-// Device functions shared by the port's CUDA kernels (step_whole.cu,
-// linearize.cu, ipm_whole.cu, riccati_iter.cu, riccati_sweep.cu), one
-// scenario per thread.
+// Device functions shared by the port's CUDA kernels: the one-thread-per-
+// scenario sweeps of linearize.cu, riccati_iter.cu and riccati_sweep.cu, and
+// the per-stage and per-row algebra that the team kernels of step_whole.cu
+// and ipm_whole.cu (ndp_team.cuh) call lane by lane.
 // Each function is named after its JAX counterpart:
 //   lin_stage_terms / lin_terminal_terms  ops/pallas/linearize.py:122,183
 //   linearize_scenario                    ops/pallas/linearize.py:_lin_kernel
@@ -11,7 +12,6 @@
 //                                         _backward_kernel
 //   rollout, forward_pass                 _forward_kernel, _forward_kernel_glue
 //   chol4, chol4_solve                    ops/pallas/riccati.py:101,122
-//   ipm_whole                             ops/pallas/ipm_whole.py:82
 // and follows the same operation order as the plain PyTorch versions in
 // ops/kernels/{linearize,riccati_sparse,ipm_whole}.py, so the two differ only
 // by nvcc's FMA contraction.
@@ -129,53 +129,6 @@ __device__ inline Payload<JT> payload_at(const QpPtrs& p, long long B, long long
   q.uxb = at(p.uxb, 3, B, b);
   q.dx0 = at(p.dx0, NX, B, b);
   return q;
-}
-
-// ---- workspaces: planes of B values, carved per scenario ----
-
-template <typename T>
-struct Carver {
-  T* base;
-  long long B, off;  // off starts at the scenario index b
-  __device__ View<T> take(int s, int d) {
-    View<T> v{base + off, d, B};
-    off += (long long)s * d * B;
-    return v;
-  }
-};
-
-// The IPM's per-scenario arrays (the TPU kernel's VMEM scratch).
-struct IpmScratch {
-  View<float> K, kf, rh, sul, suu, sxl, sxu, dx, du;
-  View<float> zx, zu;  // primal deltas; the iterates change only in the fold
-};
-
-__host__ __device__ inline int ipm_ws_planes(int N) {
-  return N * NU * NX       // K
-         + N * NU          // kf
-         + N * NX          // rh
-         + 2 * N * NU      // sul, suu
-         + 2 * (N + 1) * 3 // sxl, sxu
-         + (N + 1) * NX    // dx
-         + N * NU          // du
-         + (N + 1) * NX    // zx
-         + N * NU;         // zu
-}
-
-__device__ inline IpmScratch carve_ipm(Carver<float>& cv, int N) {
-  IpmScratch s;
-  s.K = cv.take(N, NU * NX);
-  s.kf = cv.take(N, NU);
-  s.rh = cv.take(N, NX);
-  s.sul = cv.take(N, NU);
-  s.suu = cv.take(N, NU);
-  s.sxl = cv.take(N + 1, 3);
-  s.sxu = cv.take(N + 1, 3);
-  s.dx = cv.take(N + 1, NX);
-  s.du = cv.take(N, NU);
-  s.zx = cv.take(N + 1, NX);
-  s.zu = cv.take(N, NU);
-  return s;
 }
 
 // ---- linearization (ops/pallas/linearize.py) ----
@@ -897,139 +850,6 @@ __device__ inline StepAcc forward_pass(const Payload<JT>& q, View<float> Ko, Vie
   for (int i = 0; i < NX; ++i) dxo(N, i) = dx[i];
   x_rows(N, dx);
   return acc;
-}
-
-// ---- the whole IPM (ops/pallas/ipm_whole.py) ----
-
-__device__ inline void slack_init_pair(float lo, float hi, float v, float s_min, float& s_lo,
-                                       float& s_up) {
-  const float rng = hi - lo;
-  const float floor_ = nmin(s_min * nmin(rng, 1e3f), 0.5f * rng);
-  s_lo = nmax(fabsf(v - lo), floor_);
-  s_up = nmax(fabsf(hi - v), floor_);
-}
-
-// The whole warm-started IPM over one scenario's payload. The duals update
-// in place: each thread reads the carried value of its own element before
-// writing it. s.zx/s.zu receive the primal deltas; with xb/ub given (p !=
-// null) the SQP axpy is folded into them at the end.
-template <typename JT>
-__device__ void ipm_whole(const Payload<JT>& q, const IpmScratch& s, View<float> lul,
-                          View<float> luu, View<float> lxl, View<float> lxu, float* mu_io,
-                          float* eq_out, View<float> xb, View<float> ub, const StepConsts& c) {
-  const int N = c.n_stages;
-  const View<float> zx = s.zx, zu = s.zu;
-  const Bounds bd{s.sul, s.suu, s.sxl, s.sxu, lul, luu, lxl, lxu};
-  const float mu_w = *mu_io;
-  const bool cold = mu_w < 0.0f;
-  const float n_cons = (float)(2 * N * NU + 2 * (N + 1) * 3);
-  float dx0[NX];
-  for (int i = 0; i < NX; ++i) dx0[i] = q.dx0(0, i);
-  auto mix_lam = [&](float carried, float sl) { return cold ? c.mu0 / sl : nmax(carried, 1e-12f); };
-  auto init_x_node = [&](int k, const float* z, float c0) {
-    for (int i = 0; i < 3; ++i) {
-      float s_lo, s_up;
-      slack_init_pair(q.lxb(k, i), q.uxb(k, i), z[3 + i], c.s_min, s_lo, s_up);
-      s.sxl(k, i) = s_lo;
-      s.sxu(k, i) = s_up;
-      const float ll = mix_lam(lxl(k, i), s_lo);
-      const float lu = mix_lam(lxu(k, i), s_up);
-      lxl(k, i) = ll;
-      lxu(k, i) = lu;
-      c0 = c0 + s_lo * ll + s_up * lu;
-    }
-    return c0;
-  };
-
-  // zero-control dynamics-exact start, slacks at the zero iterate, dual warm
-  // mixing, complementarity-derived barrier start
-  Blocks m;
-  float z[NX], nxt[NX], rk[NX];
-  for (int i = 0; i < NX; ++i) z[i] = dx0[i];
-  float c0 = 0.0f;
-  for (int k = 0; k < N; ++k) {
-    for (int l = 0; l < NU; ++l) {
-      float s_lo, s_up;
-      slack_init_pair(q.lub(k, l), q.uub(k, l), 0.0f, c.s_min, s_lo, s_up);
-      s.sul(k, l) = s_lo;
-      s.suu(k, l) = s_up;
-      const float ll = mix_lam(lul(k, l), s_lo);
-      const float lu = mix_lam(luu(k, l), s_up);
-      lul(k, l) = ll;
-      luu(k, l) = lu;
-      c0 = c0 + s_lo * ll + s_up * lu;
-      zu(k, l) = 0.0f;
-    }
-    for (int i = 0; i < NX; ++i) zx(k, i) = z[i];
-    c0 = init_x_node(k, z, c0);
-    load_blocks(q, k, m);
-    for (int i = 0; i < NX; ++i) rk[i] = q.r(k, i);
-    dyn_step(m, rk, c.h, z, nullptr, nxt);
-    for (int i = 0; i < NX; ++i) z[i] = nxt[i];
-  }
-  for (int i = 0; i < NX; ++i) zx(N, i) = z[i];
-  c0 = init_x_node(N, z, c0);
-  float mu = cold ? c.mu0 : nmin(nmax(c.sigma * c0 / n_cons, c.mu_min), c.mu0);
-
-  float res2 = 0.0f, ap = 0.0f;
-  for (int it = 0; it < c.num_iters; ++it) {
-    float r2 = backward_sweep(q, zx, zu, bd, mu, s.K, s.kf, s.rh, c);
-    float dx[NX];
-    for (int i = 0; i < NX; ++i) dx[i] = dx0[i] - zx(0, i);
-    {
-      float sq = dx[0] * dx[0];
-      for (int i = 1; i < NX; ++i) sq = sq + dx[i] * dx[i];
-      r2 = r2 + sq;
-    }
-
-    // pass A: rollout, fraction-to-boundary and complementarity partials
-    const StepAcc acc = forward_pass(q, s.K, s.kf, s.rh, zx, zu, bd, mu, dx, s.dx, s.du,
-                                     Dirs{}, c);
-    ap = nmin(acc.ap, 1.0f);
-    const float ad = nmin(acc.ad, 1.0f);
-
-    // pass B: recover the slack/dual directions and apply the step
-    auto update_x_node = [&](int k) {
-      for (int i = 0; i < 3; ++i) {
-        float s_lo = s.sxl(k, i), s_up = s.sxu(k, i), l_lo = lxl(k, i), l_up = lxu(k, i);
-        update_row(zx(k, 3 + i), s.dx(k, 3 + i), q.lxb(k, i), q.uxb(k, i), s_lo, s_up, l_lo,
-                   l_up, mu, ap, ad);
-        s.sxl(k, i) = s_lo;
-        s.sxu(k, i) = s_up;
-        lxl(k, i) = l_lo;
-        lxu(k, i) = l_up;
-      }
-      for (int i = 0; i < NX; ++i) zx(k, i) = zx(k, i) + ap * s.dx(k, i);
-    };
-    for (int k = 0; k < N; ++k) {
-      for (int l = 0; l < NU; ++l) {
-        float s_lo = s.sul(k, l), s_up = s.suu(k, l), l_lo = lul(k, l), l_up = luu(k, l);
-        const float d = s.du(k, l);
-        update_row(zu(k, l), d, q.lub(k, l), q.uub(k, l), s_lo, s_up, l_lo, l_up, mu, ap, ad);
-        s.sul(k, l) = s_lo;
-        s.suu(k, l) = s_up;
-        lul(k, l) = l_lo;
-        luu(k, l) = l_up;
-        zu(k, l) = zu(k, l) + ap * d;
-      }
-      update_x_node(k);
-    }
-    update_x_node(N);
-
-    const float comp = (acc.c1 + ap * acc.c2 + ad * acc.c3 + ap * ad * acc.c4) / n_cons;
-    mu = nmax(c.sigma * comp, c.mu_min);
-    res2 = r2;
-  }
-  *mu_io = mu;
-  *eq_out = (1.0f - ap) * sqrtf(res2);
-
-  if (xb.p) {
-    for (int k = 0; k <= N; ++k) {
-      for (int i = 0; i < NX; ++i) xb(k, i) = zx(k, i) + xb(k, i);
-      if (k < N)
-        for (int l = 0; l < NU; ++l) ub(k, l) = zu(k, l) + ub(k, l);
-    }
-  }
 }
 
 }  // namespace ndp

@@ -3,26 +3,45 @@
 // launch. Replaces the TPU kernel `ops/pallas/step_whole.py:control_step_whole`
 // (body `_step_whole_kernel`).
 //
-// Design: one thread per scenario (128 threads a block, ceil(B/128) blocks,
-// masked at b < B), each walking the stages in loops as the TPU kernel's
-// fori_loops do. The recursion is sequential per scenario (stages x IPM
-// iterations), so the batch is the only parallel axis.
+// What bounds it on this card: operations. The step does about 0.39 MFLOP of
+// scalar f32 work a scenario (~25.7 GFLOP at B=65536; the Riccati stage core
+// x N x 3 iterations dominates) against about 6 KB of unavoidable traffic
+// (state in and out plus the tick's inputs), far above the card's 20
+// FLOP/byte f32 balance. The work is a recursion of short dependent steps
+// per scenario, so the design keeps every intermediate on the SM and gives
+// the parallel work inside a scenario to several lanes; measured, the SM
+// then runs near its instruction-issue limit, so the code keeps one path per
+// phase where it can (tools/time_team_kernels.py reads the phases' cycles).
+// No tensor cores: the products are 10x10 f32 per scenario, and TF32 (~10
+// mantissa bits) could not hold the f32-payload check's 1e-4 on the iterates
+// against f32 arithmetic.
 //
-// What bounds it on this card: operations. Per scenario the step does about
-// 0.3 MFLOP of scalar f32 work (the Riccati stage core x N x iterations
-// dominates) against about 6 KB of unavoidable traffic (state in and out
-// plus the tick's inputs), far above the card's 20 FLOP/byte f32 balance.
-// This first version is latency-bound below that: each thread holds P (100
-// floats) and the stage temporaries in local arrays that spill, and it keeps
-// the stage payload and the IPM scratch in a global workspace in
-// (stage, element, B) layout, where the TPU kept them in VMEM. Coalesced
-// addressing (neighbouring threads, neighbouring scenarios) keeps that
-// traffic in wide transactions, mostly served from L2. Moving the payload
-// on-chip is the work of a later version.
+// Design: a team of TEAM = 16 lanes (half a warp) a scenario, S scenarios a
+// block (ndp_team.cuh). The block copies its S consecutive scenarios'
+// inputs (xb, ub, xr, ur, fd, x0, the carried duals and mu) into shared
+// memory row by row with cp.async, lanes across scenarios, so every row is
+// one contiguous run; each team linearizes its scenario stage-parallel
+// straight into its slot (the payload never reaches global memory), runs
+// the whole IPM there, and the block writes the duals, mu and eq_res out and
+// folds the deltas into xb/ub in place, again row by row. No global
+// workspace.
+//
+// Shared memory: a slot holds the payload (hq, a, b in the jac dtype; the
+// rest f32), the IPM scratch (K, kf, rh, slacks, zx, zu), the carried duals,
+// the backward stage's work area (P, PA/Qh, PB, S and vectors, which also
+// holds dx and du from the rollout to pass B) and the scalars; the region of
+// K also holds the step inputs while the linearization runs and the box
+// rows' directions from the rollout to pass B. At N=20 that is 16,352 bytes
+// a scenario with the bf16 payload (16,448 with the padding that puts
+// neighbouring slots 16 banks apart), so S = 14: 224 threads and 230,272
+// bytes a block, one block an SM. With the f32 payload 19,824 (19,904): S =
+// 11. TEAM = 16 covers the ten rows of a stage's products in one pass;
+// TEAM = 8 (NDP_TEAM=8) keeps the same slots a block with half the warps
+// and measured slower.
 //
 // Bound to PyTorch through ctypes: plain C entry points, no PyTorch headers.
 
-#include "ndp.cuh"
+#include "ndp_team.cuh"
 
 namespace ndp {
 
@@ -40,90 +59,95 @@ struct StepPtrs {
   float* lx_up;
   float* mu;         // (B,) barrier weight, < 0 = cold
   float* eq;         // (B,) out: equality residual
-  float* ws;         // ws_f32_planes(N) planes of B floats
-  void* wj;          // ws_jac_planes(N) planes of B jac-dtype values
 };
-
-// The workspace: the payload's f32 fields, then the IPM scratch; the
-// curvature fields in the jac dtype.
-__host__ __device__ inline int ws_f32_planes(int N) {
-  return (N + 1) * NX      // gx
-         + N * NU          // gu
-         + N * 6           // bc
-         + N * NX          // r
-         + 2 * N * NU      // lub, uub
-         + 2 * (N + 1) * 3 // lxb, uxb
-         + NX              // dx0
-         + ipm_ws_planes(N);
-}
-
-__host__ __device__ inline int ws_jac_planes(int N) {
-  return (N + 1) * 16 + N * 40 + N * 30;  // hq, a, b
-}
-
-template <typename JT>
-__device__ void step_whole_scenario(const StepPtrs& a, const StepConsts& c, long long B,
-                                    long long b) {
-  const int N = c.n_stages;
-  Payload<JT> q;
-  Carver<float> cv{a.ws, B, b};
-  q.gx = cv.take(N + 1, NX);
-  q.gu = cv.take(N, NU);
-  q.bc = cv.take(N, 6);
-  q.r = cv.take(N, NX);
-  q.lub = cv.take(N, NU);
-  q.uub = cv.take(N, NU);
-  q.lxb = cv.take(N + 1, 3);
-  q.uxb = cv.take(N + 1, 3);
-  q.dx0 = cv.take(1, NX);
-  const IpmScratch s = carve_ipm(cv, N);
-  Carver<JT> cj{static_cast<JT*>(a.wj), B, b};
-  q.hq = cj.take(N + 1, 16);
-  q.a = cj.take(N, 40);
-  q.b = cj.take(N, 30);
-
-  // phase 1: linearize every stage into the workspace
-  linearize_scenario<JT>(View<const float>{a.xb + b, NX, B}, View<const float>{a.ub + b, NU, B},
-                         at(a.xr, NX, B, b), at(a.ur, NU, B, b),
-                         at(c.with_dist ? a.fd : nullptr, 3, B, b), at(a.x0, NX, B, b), q, c);
-
-  // phases 2+3: the whole IPM over the workspace payload, axpy folded
-  ipm_whole<JT>(q, s, at(a.lu_lo, NU, B, b), at(a.lu_up, NU, B, b), at(a.lx_lo, 3, B, b),
-                at(a.lx_up, 3, B, b), a.mu + b, a.eq + b, at(a.xb, NX, B, b),
-                at(a.ub, NU, B, b), c);
-}
 
 }  // namespace ndp
 
 template <typename JT>
-__global__ void __launch_bounds__(128)
-    step_whole_kernel(ndp::StepPtrs p, ndp::StepConsts c, long long B) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < B) ndp::step_whole_scenario<JT>(p, c, B, b);
+__global__ void __launch_bounds__(ndp::MAX_THREADS, 1)
+    step_whole_kernel(const __grid_constant__ ndp::StepPtrs p,
+                      const __grid_constant__ ndp::StepConsts c, long long B, int S) {
+  using namespace ndp;
+  extern __shared__ float4 ndp_smem[];
+  team_clock(-1);
+  float* const base = reinterpret_cast<float*>(ndp_smem);
+  const int N = c.n_stages;
+  const TeamLayout L = team_layout(N, (int)sizeof(JT));
+  const int st = L.stride;
+  const long long b0 = (long long)blockIdx.x * S;
+  const bool with_dist = c.with_dist && p.fd;
+
+  const int nx1 = (N + 1) * NX, nu = N * NU, nv = (N + 1) * 3;
+  const int k0 = L.K;  // the step inputs, in region K (StepIn's order)
+  const Seg<float> in[] = {
+      {const_cast<float*>(p.xb), k0, nx1, false},
+      {const_cast<float*>(p.ub), k0 + nx1, nu, false},
+      {const_cast<float*>(p.xr), k0 + nx1 + nu, nx1, false},
+      {const_cast<float*>(p.ur), k0 + 2 * nx1 + nu, nu, false},
+      {const_cast<float*>(p.fd), k0 + 2 * nx1 + 2 * nu, with_dist ? nv : 0, false},
+      {const_cast<float*>(p.x0), k0 + 2 * nx1 + 2 * nu + nv, NX, false},
+      {p.lu_lo, L.lul, nu, false}, {p.lu_up, L.luu, nu, false},
+      {p.lx_lo, L.lxl, nv, false}, {p.lx_up, L.lxu, nv, false},
+      {p.mu, L.sc + SC_MUW, 1, false},
+  };
+  stage_in_async(base, st, in, S, b0, B);
+  cp_async_wait_all();
+  __syncthreads();
+  team_clock(CK_STAGE_IN);
+
+  {
+    float* slot = base + (threadIdx.x / TEAM) * st;
+    const Team<JT> tm = team_at<JT>(slot, L, N);
+    team_linearize(tm, step_in(slot + L.K, N), with_dist, c);
+    team_ipm(tm, c);
+  }
+  __syncthreads();
+
+  const Seg<float> out[] = {
+      {p.xb, L.zx, nx1, true}, {p.ub, L.zu, nu, true},  // the SQP axpy, in place
+      {p.lu_lo, L.lul, nu, false}, {p.lu_up, L.luu, nu, false},
+      {p.lx_lo, L.lxl, nv, false}, {p.lx_up, L.lxu, nv, false},
+      {p.mu, L.sc + SC_MU, 1, false}, {p.eq, L.sc + SC_EQ, 1, false},
+  };
+  stage_out(base, st, out, S, b0, B);
+  team_clock(CK_STAGE_OUT);
+}
+
+template <typename JT>
+static int step_whole_launch_t(const ndp::StepConsts* c, const ndp::StepPtrs* p, long long B,
+                               cudaStream_t s) {
+  const ndp::TeamGeom g = ndp::team_geometry(c->n_stages, (int)sizeof(JT), B);
+  if (g.S < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      step_whole_kernel<JT>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)g.blocks;
+  step_whole_kernel<JT><<<blocks, g.threads, g.smem, s>>>(*p, *c, B, g.S);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// Workspace planes per scenario: f32 planes of B floats, jac planes of B
-// values in the jac dtype.
-int step_whole_ws_planes(int n_stages) { return ndp::ws_f32_planes(n_stages); }
-int step_whole_jac_planes(int n_stages) { return ndp::ws_jac_planes(n_stages); }
+// Launch geometry for the ctypes mirror (ndp::team_geometry_out).
+void step_whole_geometry(int n_stages, int jac_bf16, long long B, long long* out) {
+  ndp::team_geometry_out(n_stages, jac_bf16, B, out);
+}
 
 // Layout check for the ctypes mirrors.
 int step_whole_consts_size() { return (int)sizeof(ndp::StepConsts); }
 int step_whole_ptrs_size() { return (int)sizeof(ndp::StepPtrs); }
 
-// Launches the step on `stream`; returns cudaGetLastError() after the launch.
+// Launches the step on `stream`; returns the error of the shared-memory
+// attribute or cudaGetLastError() after the launch.
 int step_whole_launch(int jac_bf16, const ndp::StepConsts* c, const ndp::StepPtrs* p,
                       long long B, void* stream) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (jac_bf16)
-    step_whole_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(*p, *c, B);
-  else
-    step_whole_kernel<float><<<blocks, threads, 0, s>>>(*p, *c, B);
-  return (int)cudaGetLastError();
+  return jac_bf16 ? step_whole_launch_t<__nv_bfloat16>(c, p, B, s)
+                  : step_whole_launch_t<float>(c, p, B, s);
 }
 
+#ifdef NDP_TEAM_CLOCKS
+// The phase cycle counts since the last call (ndp::ClockPhase order).
+int step_whole_clocks(long long* out) { return ndp::team_clocks_take(out); }
+#endif
 }  // extern "C"

@@ -50,42 +50,45 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _lib_path(name: str, defines=()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES) -> None:
+def build(names=SOURCES, defines=()) -> None:
     """Compile every named source not built yet: one nvcc per source, all
-    started together."""
+    started together. `defines` (e.g. "NDP_TEAM=8") build a variant of its
+    own, logged under "<name>[defines]"."""
     todo = {}
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
+        key = f"{name}[{','.join(defines)}]" if defines else name
         if out.exists():
-            if name not in build_info:
+            if key not in build_info:
                 log = out.with_suffix(".log")
-                build_info[name] = dict(
+                build_info[key] = dict(
                     seconds=0.0, cached=True,
                     log=log.read_text() if log.exists() else "",
                 )
         else:
-            todo[name] = out
+            todo[name] = (out, key)
     if not todo:
         return
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, out in todo.items():
+    for name, (out, key) in todo.items():
         tmp = out.parent / f"{out.stem}.tmp{os.getpid()}.so"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-        procs[name] = (proc, tmp, out, time.perf_counter())
+        procs[name] = (proc, tmp, out, key, time.perf_counter())
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
+    for name, (proc, tmp, out, key, t0) in procs.items():
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
@@ -93,14 +96,16 @@ def build(names=SOURCES) -> None:
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
-        build_info[name] = dict(seconds=seconds, cached=False, log=log)
+        build_info[key] = dict(seconds=seconds, cached=False, log=log)
     if failed:
         raise RuntimeError("\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
-    if name not in _libs:
-        build((name,))
-        _libs[name] = ctypes.CDLL(str(_lib_path(name)))
-    return _libs[name]
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` (built with `defines`), built
+    first if needed."""
+    key = (name, tuple(defines))
+    if key not in _libs:
+        build((name,), defines)
+        _libs[key] = ctypes.CDLL(str(_lib_path(name, defines)))
+    return _libs[key]

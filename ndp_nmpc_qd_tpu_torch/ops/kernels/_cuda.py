@@ -74,18 +74,21 @@ def step_consts(n_stages: int, c: dict) -> StepConsts:
     return out
 
 
-def bind(name: str, ptrs_type, launchers, planes=()):
-    """The loaded library of `csrc/<name>.cu` with its functions typed and
-    its struct sizes checked against the mirrors."""
-    lib = _build.load(name)
+def bind(name: str, ptrs_type, launchers, geometry=None, lib=None):
+    """The loaded library of `csrc/<name>.cu` (or `lib`, one built from it)
+    with its functions typed and its struct sizes checked against the
+    mirrors. `geometry`: the name of its team-geometry export."""
+    lib = lib or _build.load(name)
     if not getattr(lib, "_ndp_ready", False):
         for fn in launchers:
             f = getattr(lib, fn)
             f.argtypes = [ctypes.c_int, _P, _P, ctypes.c_longlong, _P]
             f.restype = ctypes.c_int
-        for fn in planes:
-            getattr(lib, fn).argtypes = [ctypes.c_int]
-            getattr(lib, fn).restype = ctypes.c_int
+        if geometry:
+            f = getattr(lib, geometry)
+            f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.POINTER(ctypes.c_longlong)]
+            f.restype = None
         for fn in (f"{name}_consts_size", f"{name}_ptrs_size"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = ctypes.c_int
@@ -146,3 +149,58 @@ def qp_ptrs(fields: dict, N: int, B: int, jac_bf16: bool, device) -> QpPtrs:
     for name, t in fields.items():
         check(name, t, shapes[name], device, jd if name in JAC_FIELDS else torch.float32)
     return QpPtrs(**{n: ptr(t) for n, t in fields.items()})
+
+
+# ---- the team kernels' launch geometry (csrc/ndp_team.cuh) ----
+
+TEAM = 16  # lanes a scenario (NDP_TEAM)
+SMEM_MAX = 232448  # dynamic shared memory a block may take on sm_90
+MAX_THREADS = 256  # the team kernels' __launch_bounds__
+WORK_FLOATS = 352  # the backward stage's work area
+SCALAR_FLOATS = 8
+GEOMETRY_KEYS = (
+    "threads_per_scenario", "scenarios_per_block", "threads_per_block", "blocks",
+    "smem_bytes_per_block", "scenario_bytes", "slot_bytes",
+)
+
+
+def team_arrays(n_stages: int, jac_bf16: bool) -> list:
+    """(name, bytes) of the arrays of one scenario's slot, in slot order,
+    each f32 array padded to 16 bytes (the jac-dtype payload is one run).
+    "K" also holds K1's step inputs and the box rows' directions, "work"
+    (the backward stage's) the directions dx and du."""
+    N = n_stages
+    f = lambda *names_sizes: [(n, 16 * -(-s // 4)) for n, s in names_sizes]  # 16-byte aligned
+    jb = 2 if jac_bf16 else 4
+    u, x, v = N * 4, (N + 1) * 10, (N + 1) * 3
+    k = max(N * 40, 2 * x + 2 * u + v + 10, 4 * u + 4 * v)
+    return f(
+        ("gx", x), ("gu", u), ("bc", N * 6), ("r", N * 10), ("lub", u), ("uub", u),
+        ("lxb", v), ("uxb", v), ("dx0", 10),
+        ("K", k), ("kf", u), ("rh", N * 10), ("sul", u), ("suu", u), ("sxl", v), ("sxu", v),
+        ("zx", x), ("zu", u),
+        ("lul", u), ("luu", u), ("lxl", v), ("lxu", v),
+        ("work", max(WORK_FLOATS, x + u)), ("scalars", SCALAR_FLOATS),
+    ) + [("hq", jb * (N + 1) * 16), ("a", jb * N * 40), ("b", jb * N * 30)]
+
+
+def team_geometry(B: int, n_stages: int, jac_bf16: bool, team: int = TEAM) -> dict:
+    """Launch geometry of K1/K2 for B scenarios, as `ndp::team_geometry`
+    computes it: a slot of the arrays' bytes, padded to a stride of floats
+    congruent to `team` mod 32 (neighbouring slots start `team` banks apart),
+    as many slots a block as fit SMEM_MAX, at most MAX_THREADS threads and
+    at most B slots."""
+    nbytes = sum(b for _, b in team_arrays(n_stages, jac_bf16))
+    stride = -(-nbytes // 4)
+    stride += (team - stride % 32) % 32
+    S = min(SMEM_MAX // (4 * stride), MAX_THREADS // team, B)
+    return dict(zip(GEOMETRY_KEYS, (
+        team, S, S * team, -(-B // S), S * 4 * stride, nbytes, 4 * stride,
+    )))
+
+
+def c_geometry(fn, B: int, n_stages: int, jac_bf16: bool) -> dict:
+    """The geometry a kernel library computes (its `<name>_geometry`)."""
+    out = (ctypes.c_longlong * len(GEOMETRY_KEYS))()
+    fn(n_stages, int(jac_bf16), B, out)
+    return dict(zip(GEOMETRY_KEYS, out))

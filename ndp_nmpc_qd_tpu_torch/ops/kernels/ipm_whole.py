@@ -19,7 +19,8 @@ dual update; barrier update). The final equality residual is
 - `ipm_whole` is the algorithm on a `StagePayload`, every element a (B,)
   tensor held in Python lists indexed [stage][element]; the Pallas kernel
   keeps the same arrays in VMEM scratch and the CUDA kernel
-  (`csrc/ndp.cuh:ipm_whole`) in a global workspace.
+  (`csrc/ndp_team.cuh:team_ipm`, a team of lanes a scenario) in shared
+  memory.
 """
 
 from __future__ import annotations
@@ -205,25 +206,60 @@ class _IpmPtrs(ctypes.Structure):
     """Mirror of `ndp::IpmPtrs` (csrc/ipm_whole.cu)."""
 
     _fields_ = [("q", _cuda.QpPtrs)] + _cuda.pointers((
-        "lu_lo", "lu_up", "lx_lo", "lx_up", "mu", "xb", "ub", "zx", "zu", "eq", "ws",
+        "lu_lo", "lu_up", "lx_lo", "lx_up", "mu", "xb", "ub", "zx", "zu", "eq",
     ))
 
 
-def _lib():
-    return _cuda.bind("ipm_whole", _IpmPtrs, ("ipm_whole_launch",), ("ipm_whole_ws_planes",))
+def _lib(lib=None):
+    return _cuda.bind("ipm_whole", _IpmPtrs, ("ipm_whole_launch",), "ipm_whole_geometry",
+                      lib=lib)
 
 
-def make_workspace(B: int, n_stages: int, device):
-    """The kernel's per-scenario scratch, (planes, B) f32: allocated once per
-    batch size by the caller; the kernel allocates nothing."""
-    planes = _lib().ipm_whole_ws_planes(n_stages)
-    return torch.empty((planes, B), dtype=torch.float32, device=device)
+def geometry(B: int, n_stages: int, jac_bf16: bool, lib=None) -> dict:
+    """The launch geometry the kernel's library computes (K1's)."""
+    return _cuda.c_geometry(_lib(lib).ipm_whole_geometry, B, n_stages, jac_bf16)
+
+
+def launch_args(
+    hq, gx, gu, a, b, bc, r, lub, uub, lxb, uxb,
+    wlu_lo, wlu_up, wlx_lo, wlx_up, wmu, dx0, xb=None, ub=None, **consts,
+):
+    """Check the CUDA tensors of one solve and return the arguments of
+    `_cuda.launch` after the launcher: (jac_bf16, StepConsts, IpmPtrs, B,
+    device), and (zx or xb, zu or ub, eq_res) as the kernel leaves them."""
+    fold = xb is not None
+    Np1, _, B = gx.shape
+    N = Np1 - 1
+    dev = gx.device
+    jac_bf16 = hq.dtype == torch.bfloat16
+    q = _cuda.qp_ptrs(
+        dict(hq=hq, gx=gx, gu=gu, a=a, b=b, bc=bc, r=r, lub=lub, uub=uub, lxb=lxb,
+             uxb=uxb, dx0=dx0), N, B, jac_bf16, dev,
+    )
+    zs = (xb, ub) if fold else (
+        torch.empty((Np1, NX, B), dtype=torch.float32, device=dev),
+        torch.empty((N, NU, B), dtype=torch.float32, device=dev),
+    )
+    for name, t, shape in (
+        ("lu_lo", wlu_lo, (N, NU, B)), ("lu_up", wlu_up, (N, NU, B)),
+        ("lx_lo", wlx_lo, (Np1, 3, B)), ("lx_up", wlx_up, (Np1, 3, B)),
+        ("mu", wmu, (B,)), ("xb", zs[0], (Np1, NX, B)), ("ub", zs[1], (N, NU, B)),
+    ):
+        _cuda.check(name, t, shape, dev)
+    eq = torch.empty(B, dtype=torch.float32, device=dev)
+    ptrs = _IpmPtrs(
+        q=q, lu_lo=wlu_lo.data_ptr(), lu_up=wlu_up.data_ptr(),
+        lx_lo=wlx_lo.data_ptr(), lx_up=wlx_up.data_ptr(), mu=wmu.data_ptr(),
+        xb=_cuda.ptr(xb), ub=_cuda.ptr(ub),
+        zx=None if fold else zs[0].data_ptr(), zu=None if fold else zs[1].data_ptr(),
+        eq=eq.data_ptr(),
+    )
+    return (jac_bf16, _cuda.step_consts(N, consts), ptrs, B, dev), zs + (eq,)
 
 
 def riccati_ipm_whole(
     hq, gx, gu, a, b, bc, r, lub, uub, lxb, uxb,
-    wlu_lo, wlu_up, wlx_lo, wlx_up, wmu, dx0, xb=None, ub=None,
-    *, workspace=None, **consts,
+    wlu_lo, wlu_up, wlx_lo, wlx_up, wmu, dx0, xb=None, ub=None, **consts,
 ):
     """The whole IPM solve in one kernel launch.
 
@@ -251,39 +287,11 @@ def riccati_ipm_whole(
             ub.copy_(outs[1])
         return ((xb, ub) if fold else outs[:2]) + duals + (outs[7],)
     _cuda.need_cuda("riccati_ipm_whole", gx)
-    Np1, _, B = gx.shape
-    N = Np1 - 1
-    dev = gx.device
-    jac_bf16 = hq.dtype == torch.bfloat16
-    q = _cuda.qp_ptrs(
-        dict(hq=hq, gx=gx, gu=gu, a=a, b=b, bc=bc, r=r, lub=lub, uub=uub, lxb=lxb,
-             uxb=uxb, dx0=dx0), N, B, jac_bf16, dev,
-    )
-    lib = _lib()
-    if workspace is None:
-        workspace = make_workspace(B, N, dev)
-    zs = (xb, ub) if fold else (
-        torch.empty((Np1, NX, B), dtype=torch.float32, device=dev),
-        torch.empty((N, NU, B), dtype=torch.float32, device=dev),
-    )
-    for name, t, shape in (
-        ("lu_lo", wlu_lo, (N, NU, B)), ("lu_up", wlu_up, (N, NU, B)),
-        ("lx_lo", wlx_lo, (Np1, 3, B)), ("lx_up", wlx_up, (Np1, 3, B)),
-        ("mu", wmu, (B,)), ("xb", zs[0], (Np1, NX, B)), ("ub", zs[1], (N, NU, B)),
-        ("workspace", workspace, (lib.ipm_whole_ws_planes(N), B)),
-    ):
-        _cuda.check(name, t, shape, dev)
-    eq = torch.empty(B, dtype=torch.float32, device=dev)
-    ptrs = _IpmPtrs(
-        q=q, lu_lo=wlu_lo.data_ptr(), lu_up=wlu_up.data_ptr(),
-        lx_lo=wlx_lo.data_ptr(), lx_up=wlx_up.data_ptr(), mu=wmu.data_ptr(),
-        xb=_cuda.ptr(xb), ub=_cuda.ptr(ub),
-        zx=None if fold else zs[0].data_ptr(), zu=None if fold else zs[1].data_ptr(),
-        eq=eq.data_ptr(), ws=workspace.data_ptr(),
-    )
-    _cuda.launch(lib.ipm_whole_launch, jac_bf16, _cuda.step_consts(N, consts), ptrs, B, dev)
+    args, (zx, zu, eq) = launch_args(
+        hq, gx, gu, a, b, bc, r, lub, uub, lxb, uxb, *duals, dx0, xb, ub, **consts)
+    _cuda.launch(_lib().ipm_whole_launch, *args)
     riccati_ipm_whole.launches += 1
-    return zs + duals + (eq,)
+    return (zx, zu) + duals + (eq,)
 
 
 riccati_ipm_whole.launches = 0

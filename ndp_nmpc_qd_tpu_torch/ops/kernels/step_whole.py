@@ -5,7 +5,9 @@ step linearizes all N stages at the current RTI iterates, runs the whole
 warm-started interior-point QP and folds the SQP axpy, per scenario.
 
 - `control_step_whole` is the entry point. For CUDA tensors it launches the
-  hand-written kernel (`csrc/step_whole.cu`, built at first use) or raises;
+  hand-written kernel (`csrc/step_whole.cu`, built at first use: a team of
+  lanes a scenario, the scenario's payload and IPM scratch in shared memory,
+  no workspace) or raises;
   for CPU tensors it runs `control_step_whole_plain`. Either way the
   iterates and carried duals update IN PLACE, as the TPU kernel's aliased
   outputs do, and it returns the equality residual.
@@ -32,38 +34,54 @@ class _StepPtrs(ctypes.Structure):
     """Mirror of `ndp::StepPtrs` (csrc/step_whole.cu)."""
 
     _fields_ = _cuda.pointers((
-        "xb", "ub", "xr", "ur", "fd", "x0", "lu_lo", "lu_up", "lx_lo", "lx_up",
-        "mu", "eq", "ws", "wj",
+        "xb", "ub", "xr", "ur", "fd", "x0", "lu_lo", "lu_up", "lx_lo", "lx_up", "mu", "eq",
     ))
 
 
-def _lib():
-    return _cuda.bind(
-        "step_whole", _StepPtrs, ("step_whole_launch",),
-        ("step_whole_ws_planes", "step_whole_jac_planes"),
+def _lib(lib=None):
+    return _cuda.bind("step_whole", _StepPtrs, ("step_whole_launch",), "step_whole_geometry",
+                      lib=lib)
+
+
+def geometry(B: int, n_stages: int, jac_bf16: bool, lib=None) -> dict:
+    """The launch geometry the kernel's library computes (a team of lanes a
+    scenario, scenarios a block, shared memory a block): held against
+    `_cuda.team_geometry` on the card."""
+    return _cuda.c_geometry(_lib(lib).step_whole_geometry, B, n_stages, jac_bf16)
+
+
+def launch_args(xb, ub, xr, ur, fd, x0, lu_lo, lu_up, lx_lo, lx_up, mu, **consts):
+    """Check the CUDA tensors of one step and return the arguments of
+    `_cuda.launch` after the launcher: (jac_bf16, StepConsts, StepPtrs, B,
+    device), and the eq_res tensor the kernel writes."""
+    Np1, _, B = xb.shape
+    N = Np1 - 1
+    dev = xb.device
+    with_dist = bool(consts["with_dist"])
+    if B < 1:
+        raise ValueError("control_step_whole: empty batch")
+    for name, t, shape in (
+        ("xb", xb, (Np1, NX, B)), ("ub", ub, (N, NU, B)),
+        ("xr", xr, (Np1, NX, B)), ("ur", ur, (N, NU, B)),
+        ("x0", x0, (1, NX, B)),
+        ("lu_lo", lu_lo, (N, NU, B)), ("lu_up", lu_up, (N, NU, B)),
+        ("lx_lo", lx_lo, (Np1, 3, B)), ("lx_up", lx_up, (Np1, 3, B)),
+        ("mu", mu, (B,)),
+    ) + ((("fd", fd, (Np1, 3, B)),) if with_dist else ()):
+        _cuda.check(name, t, shape, dev)
+    eq = torch.empty(B, dtype=torch.float32, device=dev)
+    ptrs = _StepPtrs(
+        xb=xb.data_ptr(), ub=ub.data_ptr(), xr=xr.data_ptr(),
+        ur=ur.data_ptr(), fd=fd.data_ptr() if with_dist else None,
+        x0=x0.data_ptr(), lu_lo=lu_lo.data_ptr(), lu_up=lu_up.data_ptr(),
+        lx_lo=lx_lo.data_ptr(), lx_up=lx_up.data_ptr(), mu=mu.data_ptr(),
+        eq=eq.data_ptr(),
     )
+    jac_bf16 = bool(consts.get("jac_bf16", False))
+    return (jac_bf16, _cuda.step_consts(N, consts), ptrs, B, dev), eq
 
 
-def make_workspace(B: int, n_stages: int, jac_bf16: bool, device):
-    """The kernel's per-scenario scratch: the stage payload and the IPM
-    arrays, (planes, B) each. Allocated once per batch size by the caller;
-    the kernel allocates nothing."""
-    lib = _lib()
-    ws = torch.empty(
-        (lib.step_whole_ws_planes(n_stages), B), dtype=torch.float32,
-        device=device,
-    )
-    wj = torch.empty(
-        (lib.step_whole_jac_planes(n_stages), B),
-        dtype=torch.bfloat16 if jac_bf16 else torch.float32, device=device,
-    )
-    return ws, wj
-
-
-def control_step_whole(
-    xb, ub, xr, ur, fd, x0, lu_lo, lu_up, lx_lo, lx_up, mu,
-    *, workspace=None, **consts,
-):
+def control_step_whole(xb, ub, xr, ur, fd, x0, lu_lo, lu_up, lx_lo, lx_up, mu, **consts):
     """One fused control step; updates xb/ub and the duals IN PLACE.
 
     xb (N+1, 10, B), ub (N, 4, B) are the RTI iterates; xr/ur the tick's
@@ -83,40 +101,8 @@ def control_step_whole(
             dst.copy_(src)
         return outs[7]
     _cuda.need_cuda("control_step_whole", xb)
-
-    Np1, _, B = xb.shape
-    N = Np1 - 1
-    dev = xb.device
-    with_dist = bool(consts["with_dist"])
-    if B < 1:
-        raise ValueError("control_step_whole: empty batch")
-    for name, t, shape in (
-        ("xb", xb, (Np1, NX, B)), ("ub", ub, (N, NU, B)),
-        ("xr", xr, (Np1, NX, B)), ("ur", ur, (N, NU, B)),
-        ("x0", x0, (1, NX, B)),
-        ("lu_lo", lu_lo, (N, NU, B)), ("lu_up", lu_up, (N, NU, B)),
-        ("lx_lo", lx_lo, (Np1, 3, B)), ("lx_up", lx_up, (Np1, 3, B)),
-        ("mu", mu, (B,)),
-    ) + ((("fd", fd, (Np1, 3, B)),) if with_dist else ()):
-        _cuda.check(name, t, shape, dev)
-    lib = _lib()
-    jac_bf16 = bool(consts.get("jac_bf16", False))
-    if workspace is None:
-        workspace = make_workspace(B, N, jac_bf16, dev)
-    ws, wj = workspace
-    _cuda.check("workspace", ws, (lib.step_whole_ws_planes(N), B), dev)
-    _cuda.check("workspace jac planes", wj, (lib.step_whole_jac_planes(N), B), dev,
-                torch.bfloat16 if jac_bf16 else torch.float32)
-
-    eq = torch.empty(B, dtype=torch.float32, device=dev)
-    ptrs = _StepPtrs(
-        xb=xb.data_ptr(), ub=ub.data_ptr(), xr=xr.data_ptr(),
-        ur=ur.data_ptr(), fd=fd.data_ptr() if with_dist else None,
-        x0=x0.data_ptr(), lu_lo=lu_lo.data_ptr(), lu_up=lu_up.data_ptr(),
-        lx_lo=lx_lo.data_ptr(), lx_up=lx_up.data_ptr(), mu=mu.data_ptr(),
-        eq=eq.data_ptr(), ws=ws.data_ptr(), wj=wj.data_ptr(),
-    )
-    _cuda.launch(lib.step_whole_launch, jac_bf16, _cuda.step_consts(N, consts), ptrs, B, dev)
+    args, eq = launch_args(xb, ub, xr, ur, fd, x0, lu_lo, lu_up, lx_lo, lx_up, mu, **consts)
+    _cuda.launch(_lib().step_whole_launch, *args)
     control_step_whole.launches += 1
     return eq
 

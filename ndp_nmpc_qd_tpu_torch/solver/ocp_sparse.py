@@ -147,18 +147,17 @@ def make_whole_step(
 ):
     """The one-kernel control step: linearization + whole IPM + SQP axpy.
 
-    Returns step(xb, ub, xr_p, ur_p, fd_p, x0_p, warm: IpmWarm,
-    workspace=None) -> eq_res (B,), with every tensor in kernel layout. The
+    Returns step(xb, ub, xr_p, ur_p, fd_p, x0_p, warm: IpmWarm) -> eq_res
+    (B,), with every tensor in kernel layout. The
     iterates and `warm` update in place (the JAX version returns them)."""
     consts = whole_step_consts(
         ocp, vehicle, with_disturbance, jac_bf16=jac_bf16, num_iters=num_iters,
     )
 
-    def step(xb, ub, xr_p, ur_p, fd_p, x0_p, warm, workspace=None):
+    def step(xb, ub, xr_p, ur_p, fd_p, x0_p, warm):
         return control_step_whole(
             xb, ub, xr_p, ur_p, fd_p, x0_p,
-            warm.lu_lo, warm.lu_up, warm.lx_lo, warm.lx_up, warm.mu,
-            workspace=workspace, **consts,
+            warm.lu_lo, warm.lu_up, warm.lx_lo, warm.lx_up, warm.mu, **consts,
         )
 
     return step

@@ -229,7 +229,6 @@ def ipm_sparse(
     fuse_glue: bool = True,
     whole_kernel: bool = False,
     xu_bar: tuple | None = None,
-    workspace=None,
 ):
     """The interior-point QP over a SparseQp payload in kernel layout.
 
@@ -239,9 +238,7 @@ def ipm_sparse(
     - `whole_kernel=True`: the whole solve in one K2 launch
       (`riccati_ipm_whole`): zero-control start, `lqr_start` ignored, the
       res2-based residual; warm=None runs every scenario cold. `warm`'s
-      tensors update in place and are returned as new_warm; `workspace` is
-      the K2 scratch (`ops/kernels/ipm_whole.make_workspace`), allocated per
-      call without it.
+      tensors update in place and are returned as new_warm.
     - otherwise, per iteration, one `riccati_iter_fused` (K4 + K5,
       `fuse_glue=True`) or one `riccati_sweep_sparse` (K6 + K7) with the
       glue in torch (`fuse_glue=False`), and the axpys in torch; from the
@@ -267,7 +264,7 @@ def ipm_sparse(
         xb, ub = xu_bar if xu_bar is not None else (None, None)
         zx, zu, *duals, eq = riccati_ipm_whole(
             p.hq, p.gx, p.gu, p.a, p.b, p.bc, p.r, p.lu, p.uu, p.lx, p.ux,
-            *warm, dx0_p, xb, ub, workspace=workspace, **kern,
+            *warm, dx0_p, xb, ub, **kern,
             tau=tau, sigma=sigma, mu_init=mu_init, s_min=s_min, mu_min=mu_min,
             num_iters=num_iters,
         )

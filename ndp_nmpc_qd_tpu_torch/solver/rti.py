@@ -30,7 +30,6 @@ from typing import NamedTuple
 import torch
 
 from .. import const, resolve_device
-from ..ops.kernels import ipm_whole, step_whole
 from ..ops.layout import pack, unpack
 from ..params import OcpParams, VehicleParams
 from .ocp import make_ocp_functions
@@ -262,15 +261,6 @@ def make_batched_rti_controller(
         )
     one_kernel = packed_state and whole_step
     N = ocp.N_node
-    workspaces = {}
-
-    def workspace(B, make):
-        """A kernel workspace per batch size, allocated once (card only)."""
-        if dev.type != "cuda":
-            return None
-        if B not in workspaces:
-            workspaces[B] = make(B)
-        return workspaces[B]
 
     def reset_packed(xr, ur) -> RtiState:
         xr = torch.as_tensor(xr, device=dev)
@@ -299,7 +289,6 @@ def make_batched_rti_controller(
             eq = step(
                 xb, ub, pack(as_input(xr, dt)), pack(as_input(ur, dt)), fd_p,
                 pack(x0[:, None]), warm,
-                workspace=workspace(B, lambda B: step_whole.make_workspace(B, N, jac_bf16, dev)),
             )
             new_state = RtiState(xb, ub, tuple(warm) if warm_start else state.ipm)
             u0, ok = first_control_and_health(ocp, xb, ub, eq, eq_tol)
@@ -313,12 +302,9 @@ def make_batched_rti_controller(
     linearize, sp_consts = make_linearizer(ocp, vehicle, with_disturbance, jac_bf16=jac_bf16)
 
     def solve(qp, dx0_p, warm, xu_bar=None):
-        B = dx0_p.shape[-1]
         return ipm_sparse(
             qp, sp_consts, dx0_p, num_iters=qp_iters, warm=warm, lqr_start=lqr_start,
             whole_kernel=whole_ipm, xu_bar=xu_bar,
-            workspace=workspace(B, lambda B: ipm_whole.make_workspace(B, N, dev))
-            if whole_ipm else None,
         )
 
     def inputs(state, x0, xr, ur, f_dist):

@@ -132,7 +132,7 @@ def check_linearize(ins, consts):
     }), ref
 
 
-def check_ipm_whole(qp, duals, consts, xu=None, calls=3, workspace=None):
+def check_ipm_whole(qp, duals, consts, xu=None, calls=3):
     """K2 on the card against its plain version: `calls` chained solves over
     the same payload (qp: the 12 tensors of `linearize_stage_data`), each
     side carrying its own duals from the same start (with xu = (xb, ub) the
@@ -148,7 +148,7 @@ def check_ipm_whole(qp, duals, consts, xu=None, calls=3, workspace=None):
     worst, bad = {}, set()
     names = ("zx", "zu") + DUAL_NAMES + ("eq",)
     for _ in range(calls):
-        got = riccati_ipm_whole(*qp[:11], *k, qp[11], *xk, workspace=workspace, **consts)
+        got = riccati_ipm_whole(*qp[:11], *k, qp[11], *xk, **consts)
         ref = riccati_ipm_whole_plain(*qp[:11], *p, qp[11], *xp, **consts)
         p = list(ref[2:7])
         if xu is not None:

@@ -11,6 +11,10 @@ iterates within 2^-8 of each tensor's largest entry, duals and mu rtol 2^-8
 at their own scale (one bf16 ulp of a Jacobian entry may flip). Both: `ok`
 identical.
 
+K1 and K2 run a team of lanes a scenario with the scenario's working set
+in shared memory; B=1 and B=301 leave a ragged last block whatever the
+geometry, and a NaN in one scenario's x0 must stay in that scenario.
+
 The two-kernel path's kernels (K3 linearization, K2 whole IPM with and
 without the folded axpy, K4/K5 one glue-fused IPM iteration), K6/K7 and the
 legacy dense path's K8/K9 are held at the tolerances of
@@ -55,16 +59,12 @@ def assert_at_own_scale(got, ref, rtol, msg):
     assert err <= rtol, f"{msg}: {err} > {rtol} (max|ref| {float(scale):.3g})"
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("jac_bf16", [False, True])
-def test_kernel_matches_plain_on_the_card(jac_bf16):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    dev = torch.device("cuda")
-    cfg = NdpNmpcConfig()
-    N, B = cfg.ocp.N_node, 300  # not a multiple of the 128-thread block
-    consts = whole_step_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16, num_iters=3)
-    rng = np.random.default_rng(1)
+def hover_step_inputs(cfg, B, dev, seed=1):
+    """(xr, ur, fd, x0) in kernel layout and a cold state [xb, ub, *duals]:
+    hover references, x0 at random offsets in [-1, 1] m, a forecast force of
+    scale 0.3."""
+    N = cfg.ocp.N_node
+    rng = np.random.default_rng(seed)
     xr = torch.zeros(B, N + 1, 10, device=dev)
     xr[..., 6] = 1.0
     x0 = xr[:, 0].clone()
@@ -73,45 +73,59 @@ def test_kernel_matches_plain_on_the_card(jac_bf16):
     ur[..., 3] = cfg.vehicle.gravity
     fd = torch.as_tensor(0.3 * rng.standard_normal((B, N + 1, 3)), dtype=torch.float32, device=dev)
     ins = (pack(xr), pack(ur), pack(fd), pack(x0[:, None]))
-    state_k = [pack(xr).clone(), pack(ur).clone(), *cold_warm(N, B, torch.float32, dev)]
-    state_p = [t.clone() for t in state_k]
-    ws = step_whole.make_workspace(B, N, jac_bf16, dev)
-    before = step_whole.control_step_whole.launches
-    for tick in range(3):
-        eq_k = step_whole.control_step_whole(
-            state_k[0], state_k[1], *ins, *state_k[2:], workspace=ws, **consts
-        )
-        outs = step_whole.control_step_whole_plain(state_p[0], state_p[1], *ins, *state_p[2:], **consts)
-        for dst, src in zip(state_p, outs[:7]):
-            dst.copy_(src)
-        torch.cuda.synchronize()
-        msg = f"tick {tick}"
-        u0_k, ok_k = first_control_and_health(cfg.ocp, state_k[0], state_k[1], eq_k)
-        u0_p, ok_p = first_control_and_health(cfg.ocp, state_p[0], state_p[1], outs[7])
-        if jac_bf16:
-            torch.testing.assert_close(u0_k, u0_p, rtol=0, atol=1e-3, msg=msg)
-            for got, ref in zip(state_k[:2], state_p[:2]):
-                err = float((got - ref).abs().max() / ref.abs().max())
-                assert err <= BF16_ULP, f"{msg}: iterates off by {err} of their largest entry"
-            for got, ref in zip(state_k[2:], state_p[2:]):
-                assert_at_own_scale(got, ref, BF16_ULP, msg)
-        else:
-            for got, ref in zip(state_k[:2], state_p[:2]):
-                torch.testing.assert_close(got, ref, rtol=0, atol=1e-4, msg=msg)
-            for got, ref in zip(state_k[2:], state_p[2:]):
-                assert_at_own_scale(got, ref, 1e-3, msg)
-        assert torch.equal(ok_k, ok_p), msg
-    assert step_whole.control_step_whole.launches == before + 3
+    return ins, [pack(xr).clone(), pack(ur).clone(), *cold_warm(N, B, torch.float32, dev)]
+
+
+def assert_step_close(cfg, state_k, eq_k, state_p, eq_p, jac_bf16, msg):
+    """K1's state [xb, ub, *duals] and eq_res against the plain version's."""
+    u0_k, ok_k = first_control_and_health(cfg.ocp, state_k[0], state_k[1], eq_k)
+    u0_p, ok_p = first_control_and_health(cfg.ocp, state_p[0], state_p[1], eq_p)
+    if jac_bf16:
+        torch.testing.assert_close(u0_k, u0_p, rtol=0, atol=1e-3, msg=msg)
+        for got, ref in zip(state_k[:2], state_p[:2]):
+            err = float((got - ref).abs().max() / ref.abs().max())
+            assert err <= BF16_ULP, f"{msg}: iterates off by {err} of their largest entry"
+        for got, ref in zip(state_k[2:], state_p[2:]):
+            assert_at_own_scale(got, ref, BF16_ULP, msg)
+    else:
+        for got, ref in zip(state_k[:2], state_p[:2]):
+            torch.testing.assert_close(got, ref, rtol=0, atol=1e-4, msg=msg)
+        for got, ref in zip(state_k[2:], state_p[2:]):
+            assert_at_own_scale(got, ref, 1e-3, msg)
+    assert torch.equal(ok_k, ok_p), msg
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 301])  # 301: a ragged last block for any team geometry
 @pytest.mark.parametrize("jac_bf16", [False, True])
-def test_two_kernel_path_kernels_match_plain_on_the_card(jac_bf16):
+def test_kernel_matches_plain_on_the_card(jac_bf16, B):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     cfg = NdpNmpcConfig()
-    N, B = cfg.ocp.N_node, 300  # not a multiple of the 128-thread block
+    consts = whole_step_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16, num_iters=3)
+    ins, state_k = hover_step_inputs(cfg, B, dev)
+    state_p = [t.clone() for t in state_k]
+    before = step_whole.control_step_whole.launches
+    for tick in range(3):
+        eq_k = step_whole.control_step_whole(state_k[0], state_k[1], *ins, *state_k[2:], **consts)
+        outs = step_whole.control_step_whole_plain(state_p[0], state_p[1], *ins, *state_p[2:], **consts)
+        for dst, src in zip(state_p, outs[:7]):
+            dst.copy_(src)
+        torch.cuda.synchronize()
+        assert_step_close(cfg, state_k, eq_k, state_p, outs[7], jac_bf16, f"tick {tick}")
+    assert step_whole.control_step_whole.launches == before + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 301])  # 301: a ragged last block for any geometry
+@pytest.mark.parametrize("jac_bf16", [False, True])
+def test_two_kernel_path_kernels_match_plain_on_the_card(jac_bf16, B):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    cfg = NdpNmpcConfig()
+    N = cfg.ocp.N_node
     lc = lin_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16)
     ic = ipm_consts(cfg.ocp, num_iters=3)
     ins = testing.kernel_inputs(B, N, dev, seed=2)
@@ -124,17 +138,58 @@ def test_two_kernel_path_kernels_match_plain_on_the_card(jac_bf16):
     errs, bad, qp = testing.check_linearize(ins, lc)
     assert not bad, f"K3: {bad} out of tolerance: {testing.describe(errs)}"
 
-    ws = ipm_whole.make_workspace(B, N, dev)
     for xu in (None, ins[:2]):
-        errs, bad = testing.check_ipm_whole(
-            qp, cold_warm(N, B, torch.float32, dev), ic, xu=xu, workspace=ws
-        )
+        errs, bad = testing.check_ipm_whole(qp, cold_warm(N, B, torch.float32, dev), ic, xu=xu)
         assert not bad, f"K2 (fold {xu is not None}): {bad}: {testing.describe(errs)}"
 
     errs, bad = testing.check_iter(testing.iter_args(qp, ic), ic)
     assert not bad, f"K4/K5: {bad} out of tolerance: {testing.describe(errs)}"
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1] + 6, before[2] + 1, before[3] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("jac_bf16", [False, True])
+def test_team_kernels_keep_a_nan_in_its_scenario(jac_bf16):
+    """K1 and K2 with one scenario's x0 NaN: the kernels return, that
+    scenario's results are NaN where the plain version's are, and every
+    other scenario matches its plain value at the tolerances above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    cfg = NdpNmpcConfig()
+    N, B, bad_b = cfg.ocp.N_node, 301, 150
+    keep = torch.ones(B, dtype=torch.bool, device=dev)
+    keep[bad_b] = False
+    consts = whole_step_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16, num_iters=3)
+    ins, state_k = hover_step_inputs(cfg, B, dev, seed=5)
+    ins[3][0, 0, bad_b] = float("nan")
+    state_p = [t.clone() for t in state_k]
+    eq_k = step_whole.control_step_whole(state_k[0], state_k[1], *ins, *state_k[2:], **consts)
+    outs = step_whole.control_step_whole_plain(state_p[0], state_p[1], *ins, *state_p[2:], **consts)
+    torch.cuda.synchronize()
+    for got, ref in zip((*state_k, eq_k), outs):
+        assert torch.equal(got[..., bad_b].isnan(), ref[..., bad_b].isnan())
+    assert bool(eq_k[bad_b].isnan())
+    assert_step_close(cfg, [t[..., keep] for t in state_k], eq_k[keep],
+                      [t[..., keep] for t in outs[:7]], outs[7][keep], jac_bf16,
+                      "K1 off the NaN scenario")
+
+    xb, ub, xr, ur, fd, x0 = testing.kernel_inputs(B, N, dev, seed=5)
+    x0[0, 0, bad_b] = float("nan")
+    lc = lin_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16)
+    qp = linearize.linearize_stage_data_plain(xb, ub, xr, ur, fd, x0, **lc)
+    duals = cold_warm(N, B, torch.float32, dev)
+    ic = ipm_consts(cfg.ocp, num_iters=3)
+    got = ipm_whole.riccati_ipm_whole(*qp[:11], *[t.clone() for t in duals], qp[11], **ic)
+    ref = ipm_whole.riccati_ipm_whole_plain(*qp[:11], *duals, qp[11], **ic)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g[..., bad_b].isnan(), r[..., bad_b].isnan())
+    errs, bad = testing.compare({
+        n: ("primal" if i < 2 else "resid" if n == "eq" else "dual", g[..., keep], r[..., keep])
+        for i, (n, g, r) in enumerate(zip(("zx", "zu") + testing.DUAL_NAMES + ("eq",), got, ref))})
+    assert not bad, f"K2 off the NaN scenario: {bad}: {testing.describe(errs)}"
 
 
 @pytest.mark.gpu

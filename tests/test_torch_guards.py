@@ -78,6 +78,21 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
+def test_team_kernels_take_no_workspace():
+    """K1 and K2 keep each scenario's working set in shared memory: no
+    wrapper or caller takes or makes a global workspace."""
+    import inspect
+
+    from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import make_whole_step
+    from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import ipm_sparse
+
+    cfg = NdpNmpcConfig()
+    step = make_whole_step(cfg.ocp, cfg.vehicle, True, jac_bf16=True, num_iters=3)
+    for fn in (step_whole.control_step_whole, ipm_whole.riccati_ipm_whole, step, ipm_sparse):
+        assert "workspace" not in inspect.signature(fn).parameters, fn
+    assert not hasattr(step_whole, "make_workspace") and not hasattr(ipm_whole, "make_workspace")
+
+
 def test_two_kernel_wrappers_take_the_plain_versions_on_cpu_tensors():
     """K3, K2 (with and without the fold, duals and iterates updated in
     place as on the card) and K4/K5 return exactly their plain versions'
