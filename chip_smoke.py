@@ -8,9 +8,11 @@ Phases, one line each; any failure exits non-zero before the last line:
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives.
 2. build: nvcc of every kernel source (one process each, all started
    together), with ptxas' registers, stack and spills per kernel, and for
-   K1 and K2 (a team of lanes a scenario) their dynamic shared memory a
-   block, their launch geometry held against its Python mirror
-   (`_cuda.team_geometry`).
+   K1, K2 (a team of lanes a scenario, the whole horizon in shared memory)
+   and K8, K4 (a team of lanes a scenario, one stage at a time in shared
+   memory) their dynamic shared memory a block, their launch geometry held
+   against its Python mirror (`_cuda.team_geometry`,
+   `_cuda.sweep_geometry`).
 3. kernel vs plain, B=4096, f32 and bf16 payloads, at the tolerances stated
    in `check_pair` and `ndp_nmpc_qd_tpu_torch/testing.py`:
    a. K1, the fused control step, 3 chained ticks (cold, then warm), every
@@ -49,8 +51,9 @@ Phases, one line each; any failure exits non-zero before the last line:
 8. kernels: each kernel against its plain version once more at B=65536 on
    the state its path left (the deployed bf16 payload), then one JSON line,
    each hand-written kernel with its launches on its path, time, bound,
-   plain-version time and error against it (K1 and K2 also with their lanes
-   a scenario, scenarios and shared memory a block, and bound share).
+   plain-version time and error against it (K1, K2, K4 and K8 also with
+   their lanes a scenario, scenarios, threads and shared memory a block,
+   and bound share).
 9. missions through the port's CLI (`cli.run_mission`), 200 hold ticks and
    16 s of the figure-eight (1000 ticks), recovery on:
    a. `three_qd_ndp` (3 drones: the scan controller cold@12, as the JAX
@@ -220,6 +223,33 @@ def ptxas_summary(log):
 
 
 TEAM_KERNELS = {"step_whole": step_whole, "ipm_whole": ipm_whole}  # K1, K2
+SWEEP_KERNELS = {"riccati_packed": "packed", "riccati_iter": "glue"}  # K8, K4
+
+
+def sweep_geometry(kind, B, jac_bf16):
+    """A streamed sweep's launch geometry as its library computes it."""
+    if kind == "packed":
+        return riccati.geometry(B)
+    return riccati_sparse.geometry(B, jac_bf16)
+
+
+def sweep_smem(kind):
+    """The dynamic shared memory of a streamed sweep (K8, K4) at B=65536,
+    held against the Python mirror of its geometry for its payloads and a
+    few batch sizes."""
+    payloads = (False,) if kind == "packed" else (False, True)
+    for B in (1, 301, 4096, 65535, 65536):
+        for jac_bf16 in payloads:
+            got = sweep_geometry(kind, B, jac_bf16)
+            want = _cuda.sweep_geometry(kind, B, jac_bf16)
+            check(got == want, f"{kind} sweep geometry at B={B}: C {got}, Python {want}")
+    return "; ".join(
+        f"dynamic shared memory ({tag} payload, B=65536) {g['scenarios_per_block']} scenarios, "
+        f"{g['threads_per_block']} threads, {g['smem_bytes_per_block']} B a block, "
+        f"{g['threads_per_scenario']} lanes a scenario"
+        for tag, g in ((("f32", sweep_geometry(kind, 65536, False)),) if kind == "packed" else
+                       (("bf16", sweep_geometry(kind, 65536, True)),
+                        ("f32", sweep_geometry(kind, 65536, False)))))
 
 
 def team_smem(mod):
@@ -244,7 +274,8 @@ def phase_build():
     _build.build()
     wall = time.perf_counter() - t0
     for name, info in _build.build_info.items():
-        smem = f"; {team_smem(TEAM_KERNELS[name])}" if name in TEAM_KERNELS else ""
+        smem = (f"; {team_smem(TEAM_KERNELS[name])}" if name in TEAM_KERNELS else
+                f"; {sweep_smem(SWEEP_KERNELS[name])}" if name in SWEEP_KERNELS else "")
         print(f"build: {name}.cu in {info['seconds']:.1f} s (wall {wall:.1f} s, "
               f"cached={info['cached']}); ptxas: {ptxas_summary(info['log'])}{smem}")
 
@@ -610,12 +641,14 @@ def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound, B,
                 B=B, **extra)
 
 
-def team_fields(mod, B, ms, bound):
-    """The kernels-line fields of a team kernel (K1, K2): its geometry at
-    this run's B with the deployed bf16 payload and its share of its bound."""
-    g = mod.geometry(B, N, True)
+def team_fields(mod, B, ms, bound, g=None):
+    """The kernels-line fields of a kernel with a team of lanes a scenario
+    (K1, K2; K8, K4 with their geometry `g`): its geometry at this run's B
+    with the deployed bf16 payload and its share of its bound."""
+    g = g or mod.geometry(B, N, True)
     return dict(threads_per_scenario=g["threads_per_scenario"],
                 scenarios_per_block=g["scenarios_per_block"],
+                threads_per_block=g["threads_per_block"],
                 smem_bytes_per_block=g["smem_bytes_per_block"],
                 bound_share=bound["bound_ms"] / ms)
 
@@ -727,10 +760,11 @@ def phase_kernels_two_kernel(two, per, mlp):
     fwd = (args[3], args[4], args[5], rh, K, kf, *args[7:22], args[22])
     ms4 = cuda_ms(lambda: KERNELS["K4"](*bwd, **kw4), 10)
     ms5 = cuda_ms(lambda: KERNELS["K5"](*fwd, **kw5), 10)
+    bound4 = bound_of(B, bwd, (K, kf, rh, res2), plain4, bwd, kw4)
     k4 = entry(
         "riccati_backward_glue", "riccati_iter.cu", "riccati_sparse.py:728",
         per["launches"]["K4"], errs["max_abs_K4"], ms4, cuda_ms(lambda: plain4(*bwd, **kw4), 1),
-        bound_of(B, bwd, (K, kf, rh, res2), plain4, bwd, kw4), B,
+        bound4, B, **team_fields(None, B, ms4, bound4, sweep_geometry("glue", B, True)),
     )
     k5 = entry(
         "riccati_forward_glue", "riccati_iter.cu", "riccati_sparse.py:787",
@@ -809,11 +843,12 @@ def phase_kernels_packed(res, mlp):
     plain9 = riccati.riccati_forward_packed_plain
     K, kf = plain8(*bwd)
     fwd = (args[6], args[7], args[8], K, kf, *fwd_tail)
+    ms8 = cuda_ms(lambda: KERNELS["K8"](*bwd), 10)
+    bound8 = bound_of(B, bwd, (K, kf), plain8, bwd, {})
     k8 = entry(
         "riccati_backward_packed", "riccati_packed.cu", "riccati.py:318",
-        res["launches"]["K8"], errs["max_abs_K8"],
-        cuda_ms(lambda: KERNELS["K8"](*bwd), 10), cuda_ms(lambda: plain8(*bwd), 1),
-        bound_of(B, bwd, (K, kf), plain8, bwd, {}), B,
+        res["launches"]["K8"], errs["max_abs_K8"], ms8, cuda_ms(lambda: plain8(*bwd), 1),
+        bound8, B, **team_fields(None, B, ms8, bound8, sweep_geometry("packed", B, False)),
     )
     k9 = entry(
         "riccati_forward_packed", "riccati_packed.cu", "riccati.py:359",

@@ -106,7 +106,7 @@ static int ipm_whole_launch_t(const ndp::StepConsts* c, const ndp::IpmPtrs* p, l
       ipm_whole_kernel<JT>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)g.blocks;
-  ipm_whole_kernel<JT><<<blocks, g.threads, g.smem, s>>>(*p, *c, B, g.S);
+  NDP_LAUNCH(ipm_whole_kernel<JT>, blocks, g.threads, g.smem, s, *p, *c, B, g.S);
   return (int)cudaGetLastError();
 }
 

@@ -60,9 +60,9 @@ int linearize_launch(int jac_bf16, const ndp::StepConsts* c, const ndp::LinPtrs*
   const unsigned blocks = (unsigned)((B + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (jac_bf16)
-    linearize_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(*p, *c, B);
+    NDP_LAUNCH(linearize_kernel<__nv_bfloat16>, blocks, threads, 0, s, *p, *c, B);
   else
-    linearize_kernel<float><<<blocks, threads, 0, s>>>(*p, *c, B);
+    NDP_LAUNCH(linearize_kernel<float>, blocks, threads, 0, s, *p, *c, B);
   return (int)cudaGetLastError();
 }
 

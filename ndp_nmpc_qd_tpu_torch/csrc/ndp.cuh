@@ -24,6 +24,22 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#ifndef NDP_HOST_EMULATION
+#include <cuda.h>  // CUtensorMap
+#endif
+
+// A kernel launch, kern<<<grid, block, smem, stream>>>(args...). Built as
+// host C++ (NDP_HOST_EMULATION, the headers under ../emulate/include), the
+// device code runs on the CPU: the blocks one after another, each thread of
+// a block on a host thread of its own, so that the kernels' barriers and
+// shared memory behave as on the card.
+#ifdef NDP_HOST_EMULATION
+#define NDP_LAUNCH(kern, grid, block, smem, stream, ...) \
+  ndp_emulate::launch((grid), (block), (smem), [&] { kern(__VA_ARGS__); })
+#else
+#define NDP_LAUNCH(kern, grid, block, smem, stream, ...) \
+  kern<<<(grid), (block), (smem), (stream)>>>(__VA_ARGS__)
+#endif
 
 namespace ndp {
 
@@ -82,10 +98,288 @@ __device__ __forceinline__ __nv_bfloat16 stf<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);  // round to nearest even, as astype(bf16)
 }
 
+// Asynchronous copy of one float, global to shared memory without a
+// register (cp.async); the caller waits with cp_async_wait_all() before the
+// barrier that publishes the copies.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#ifdef NDP_HOST_EMULATION
+  *dst = *src;
+#else
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+#endif
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+#ifndef NDP_HOST_EMULATION
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// ---- tensor copies by the Tensor Memory Accelerator ----
+// A stage's rows of a (stage, d, B) tensor, viewed as the 2-D tensor
+// (rows, B), are one box of (d rows, S columns): one instruction loads it
+// into shared memory (dense [d][S], at a 128-byte aligned address), its
+// completion counted on an mbarrier that one thread announced the bytes on
+// (mbar_expect), and one stores it back, tracked by the issuing thread's bulk
+// groups. Boxes past B are filled with zeros in and clipped out. Generic-
+// proxy accesses of shared memory are ordered before the tensor copies that
+// follow them by fence_async_smem. The host build copies at once, and its
+// mbar_wait is a barrier of the block (every thread of a block waits on the
+// mbarrier in the port's kernels).
+#ifdef NDP_HOST_EMULATION
+struct TensorMap {
+  const char* base;
+  int esize;
+  long long cols, rows;
+  int box_cols, box_rows;
+};
+inline int tensor_map(TensorMap* m, const void* base, int esize, long long cols, long long rows,
+                      int box_cols, int box_rows) {
+  *m = TensorMap{static_cast<const char*>(base), esize, cols, rows, box_cols, box_rows};
+  return 0;
+}
+#else
+using TensorMap = CUtensorMap;
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+// The map of a (rows, cols) tensor of f32 (esize 4) or bf16 (2) elements at
+// base, rows `cols` elements apart, in boxes of (box_rows, box_cols); 0 or a
+// cudaError.
+inline int tensor_map(TensorMap* m, const void* base, int esize, long long cols, long long rows,
+                      int box_cols, int box_rows) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      m, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+      const_cast<void*>(base), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+#endif
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+#ifdef NDP_HOST_EMULATION
+  return 0;
+#else
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+#endif
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+#ifndef NDP_HOST_EMULATION
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#endif
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+#ifndef NDP_HOST_EMULATION
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+#endif
+}
+// Wait until the mbarrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+#ifdef NDP_HOST_EMULATION
+  __syncthreads();
+#else
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+#endif
+}
+// Box (col, row) of the map into dst.
+__device__ __forceinline__ void tma_load(void* dst, const TensorMap* m, int col, int row,
+                                         unsigned long long* bar) {
+#ifdef NDP_HOST_EMULATION
+  char* d = static_cast<char*>(dst);
+  for (int r = 0; r < m->box_rows; ++r)
+    for (int c = 0; c < m->box_cols; ++c, d += m->esize) {
+      if (row + r < m->rows && col + c < m->cols)
+        std::memcpy(d, m->base + ((row + r) * m->cols + col + c) * m->esize, m->esize);
+      else
+        std::memset(d, 0, m->esize);
+    }
+#else
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(m), "r"(col), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+#endif
+}
+// src into box (col, row) of the map.
+__device__ __forceinline__ void tma_store(const TensorMap* m, int col, int row, const void* src) {
+#ifdef NDP_HOST_EMULATION
+  const char* s = static_cast<const char*>(src);
+  for (int r = 0; r < m->box_rows; ++r)
+    for (int c = 0; c < m->box_cols; ++c, s += m->esize)
+      if (row + r < m->rows && col + c < m->cols)
+        std::memcpy(const_cast<char*>(m->base) + ((row + r) * m->cols + col + c) * m->esize, s,
+                    m->esize);
+#else
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::
+                   "l"(m),
+               "r"(col), "r"(row), "r"(smem_u32(src))
+               : "memory");
+#endif
+}
+__device__ __forceinline__ void bulk_commit() {
+#ifndef NDP_HOST_EMULATION
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+#endif
+}
+// Wait until every committed store has read its shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+#ifndef NDP_HOST_EMULATION
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+#endif
+}
+// Wait until every committed store has written global memory.
+__device__ __forceinline__ void bulk_wait() {
+#ifndef NDP_HOST_EMULATION
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+#endif
+}
+__device__ __forceinline__ void fence_async_smem() {
+#ifndef NDP_HOST_EMULATION
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#endif
+}
+
+// ---- the streamed sweeps' rows, element by element ----
+// A block of a streamed sweep (K8, K4) holds one stage's input rows in a
+// landing buffer and its output rows in output buffers, [row][S]: row e of
+// a field is one run of the block's S scenarios. Where the rows cannot be
+// tensor-copied (above), K8 moves them with these, one f32 element a copy
+// (cp.async.ca in), every thread of the block taking column tid % S of
+// rows tid / S, tid / S + rpi, ... (threads past rpi * S take none).
+struct Rows {
+  int S, n;  // scenarios a block, the block's live ones (from b0)
+  long long B, b0;
+  int c, r0, rpi;
+};
+
+__device__ __forceinline__ Rows block_rows(int S, long long B, long long b0) {
+  Rows R;
+  R.S = S;
+  R.B = B;
+  R.b0 = b0;
+  R.n = (int)(B - b0 < S ? B - b0 : S);
+  R.rpi = blockDim.x / S;
+  R.c = threadIdx.x % S;
+  R.r0 = (int)threadIdx.x < R.rpi * S ? threadIdx.x / S : 1 << 30;
+  return R;
+}
+
+// Rows 0..D-1 of stage k of the (., D, B) tensor g into dst[e * S + s], the
+// block's live scenarios (the columns of the others are left as they are).
+template <int D>
+__device__ __forceinline__ void rows_in(float* dst, const float* g, int k, const Rows& R) {
+  if (R.c >= R.n) return;
+  const float* const gk = g + (long long)k * D * R.B + R.b0 + R.c;
+  for (int e = R.r0; e < D; e += R.rpi) cp_async4(dst + e * R.S + R.c, gk + (long long)e * R.B);
+}
+
+// Rows 0..D-1 of src[e * S + s] to stage k of the (., D, B) tensor g, the
+// block's live scenarios.
+__device__ __forceinline__ void rows_out(float* g, const float* src, int D, int k, const Rows& R) {
+  if (R.c >= R.n) return;
+  float* const gk = g + (long long)k * D * R.B + R.b0 + R.c;
+  for (int e = R.r0; e < D; e += R.rpi) gk[(long long)e * R.B] = src[e * R.S + R.c];
+}
+
+// Vector loads and stores: n floats between 8-byte (ld2, st2) or 16-byte
+// (ld4, st4) aligned shared memory and registers. One wide access takes the
+// shared-memory pipe once where n scalar ones take it n times.
+template <int n>
+__device__ __forceinline__ void ld2(float* dst, const float* src) {
+#pragma unroll
+  for (int i = 0; i < n; i += 2) {
+    const float2 v = *reinterpret_cast<const float2*>(src + i);
+    dst[i] = v.x;
+    dst[i + 1] = v.y;
+  }
+}
+template <int n>
+__device__ __forceinline__ void ld4(float* dst, const float* src) {
+#pragma unroll
+  for (int i = 0; i < n; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src + i);
+    dst[i] = v.x;
+    dst[i + 1] = v.y;
+    dst[i + 2] = v.z;
+    dst[i + 3] = v.w;
+  }
+}
+template <int n>
+__device__ __forceinline__ void st2(float* dst, const float* src) {
+#pragma unroll
+  for (int i = 0; i < n; i += 2) *reinterpret_cast<float2*>(dst + i) = make_float2(src[i], src[i + 1]);
+}
+template <int n>
+__device__ __forceinline__ void st4(float* dst, const float* src) {
+#pragma unroll
+  for (int i = 0; i < n; i += 4)
+    *reinterpret_cast<float4*>(dst + i) = make_float4(src[i], src[i + 1], src[i + 2], src[i + 3]);
+}
+
 // NaN-propagating min/max (jnp.minimum / torch.minimum semantics; fminf
 // would drop a NaN and hide a failed solve from the health flag).
 __device__ __forceinline__ float nmin(float a, float b) { return (a != a || a < b) ? a : b; }
 __device__ __forceinline__ float nmax(float a, float b) { return (a != a || a > b) ? a : b; }
+
+// Cycle counts of the phases of block 0's first thread: built only with
+// NDP_TEAM_CLOCKS (tools/time_team_kernels.py and tools/time_sweep_kernels.py
+// read them through <kernel>_clocks); without it team_clock compiles to
+// nothing. K1/K2 use the phases up to CK_STAGE_OUT; the streamed sweeps (K8,
+// K4) also CK_WAIT (the wait for a stage's inputs and the block barrier) and
+// CK_BWD_D (K8's gain solves).
+enum ClockPhase {
+  CK_STAGE_IN, CK_LINEARIZE, CK_START, CK_BWD_TERMINAL, CK_BWD_A, CK_BWD_B, CK_BWD_C,
+  CK_BWD_E, CK_ROLLOUT, CK_ROWS, CK_ROW_SUMS, CK_PASS_B, CK_STAGE_OUT, CK_WAIT,
+  CK_BWD_D, CK_COUNT
+};
+#ifdef NDP_TEAM_CLOCKS
+__device__ long long team_clocks[CK_COUNT];
+__device__ long long team_clock_last;
+__device__ __forceinline__ void team_clock(int phase) {  // phase < 0: start the clock
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const long long now = clock64();
+    if (phase >= 0) team_clocks[phase] += now - team_clock_last;
+    team_clock_last = now;
+  }
+}
+// Copies the counts to `out` (CK_COUNT values) and zeroes them.
+inline int team_clocks_take(long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, team_clocks, sizeof(long long) * CK_COUNT);
+  if (e != cudaSuccess) return (int)e;
+  const long long zero[CK_COUNT] = {};
+  return (int)cudaMemcpyToSymbol(team_clocks, zero, sizeof(zero));
+}
+#else
+__device__ __forceinline__ void team_clock(int) {}
+#endif
 
 // ---- the stage QP payload (solver/ocp_sparse.py SparseQp + dx0) ----
 

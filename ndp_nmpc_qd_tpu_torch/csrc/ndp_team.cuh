@@ -59,37 +59,9 @@
 namespace ndp {
 
 constexpr int TEAM = NDP_TEAM;  // lanes a scenario
-static_assert(TEAM == 8 || TEAM == 16, "a team is 8 or 16 lanes of one warp");
+static_assert(TEAM == 4 || TEAM == 8 || TEAM == 16, "a team is 4, 8 or 16 lanes of one warp");
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may take on sm_90
 constexpr int MAX_THREADS = 256;  // __launch_bounds__ of the team kernels
-
-// Cycle counts of the phases of block 0's first slot, lane 0: built only with
-// NDP_TEAM_CLOCKS (tools/time_team_kernels.py reads them through
-// <kernel>_clocks); without it team_clock compiles to nothing.
-enum ClockPhase {
-  CK_STAGE_IN, CK_LINEARIZE, CK_START, CK_BWD_TERMINAL, CK_BWD_A, CK_BWD_B, CK_BWD_C,
-  CK_BWD_E, CK_ROLLOUT, CK_ROWS, CK_ROW_SUMS, CK_PASS_B, CK_STAGE_OUT, CK_COUNT
-};
-#ifdef NDP_TEAM_CLOCKS
-__device__ long long team_clocks[CK_COUNT];
-__device__ long long team_clock_last;
-__device__ __forceinline__ void team_clock(int phase) {  // phase < 0: start the clock
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    const long long now = clock64();
-    if (phase >= 0) team_clocks[phase] += now - team_clock_last;
-    team_clock_last = now;
-  }
-}
-// Copies the counts to `out` (CK_COUNT values) and zeroes them.
-inline int team_clocks_take(long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, team_clocks, sizeof(long long) * CK_COUNT);
-  if (e != cudaSuccess) return (int)e;
-  const long long zero[CK_COUNT] = {};
-  return (int)cudaMemcpyToSymbol(team_clocks, zero, sizeof(zero));
-}
-#else
-__device__ __forceinline__ void team_clock(int) {}
-#endif
 
 // The backward stage's work area (floats from TeamLayout::work). W_GT holds
 // the terminal node's box-row terms in the layout of a stage's (G_SIG..).
@@ -285,9 +257,6 @@ __device__ inline Team<JT> team_at(float* slot, const TeamLayout& L, int N) {
 
 // ---- staging between global memory (stage, element, B) and the slots ----
 
-template <typename T>
-__device__ __forceinline__ T zero_of() { return stf<T>(0.0f); }
-
 constexpr int STAGE_UNROLL = 16;  // loads in flight a thread while staging (jac dtype)
 
 // One (rows, B) tensor of a launch and its array in the slots: `off` is the
@@ -305,6 +274,9 @@ struct Seg {
 // threads read neighbouring scenarios: each row is one contiguous run of S
 // values. A thread keeps STAGE_UNROLL loads in flight. Slots past B get
 // zeros.
+template <typename T>
+__device__ __forceinline__ T zero_of() { return stf<T>(0.0f); }
+
 template <typename T, int NS>
 __device__ inline void stage_in(T* base, int stride, const Seg<T> (&seg)[NS], int S, long long b0,
                                 long long B) {
@@ -330,17 +302,9 @@ __device__ inline void stage_in(T* base, int stride, const Seg<T> (&seg)[NS], in
   }
 }
 
-// The f32 segments by asynchronous copies (cp.async, global to shared
-// without registers): a thread issues every copy of its rows at once, and
-// the caller waits with cp_async_wait_all() before its block barrier.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
+// The f32 segments by asynchronous copies (cp_async4): a thread issues every
+// copy of its rows at once, and the caller waits with cp_async_wait_all()
+// before its block barrier.
 template <int NS>
 __device__ inline void stage_in_async(float* base, int stride, const Seg<float> (&seg)[NS], int S,
                                       long long b0, long long B) {
@@ -395,35 +359,6 @@ __device__ inline void stage_out(const float* base, int stride, const Seg<float>
 
 // ---- per-row algebra, lane by lane ----
 
-// Vector loads from a slot: n floats from 8-byte (ld2) or 16-byte (ld4)
-// aligned shared memory into registers, and n jac-dtype values (4-byte
-// aligned pairs) as floats. One wide load takes the shared-memory pipe once
-// where n scalar loads take it n times.
-template <int n>
-__device__ __forceinline__ void ld2(float* dst, const float* src) {
-#pragma unroll
-  for (int i = 0; i < n; i += 2) {
-    const float2 v = *reinterpret_cast<const float2*>(src + i);
-    dst[i] = v.x;
-    dst[i + 1] = v.y;
-  }
-}
-template <int n>
-__device__ __forceinline__ void ld4(float* dst, const float* src) {
-#pragma unroll
-  for (int i = 0; i < n; i += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(src + i);
-    dst[i] = v.x;
-    dst[i + 1] = v.y;
-    dst[i + 2] = v.z;
-    dst[i + 3] = v.w;
-  }
-}
-template <int n>
-__device__ __forceinline__ void st2(float* dst, const float* src) {
-#pragma unroll
-  for (int i = 0; i < n; i += 2) *reinterpret_cast<float2*>(dst + i) = make_float2(src[i], src[i + 1]);
-}
 // n jac-dtype values from a row aligned to A bytes (A = 16: a and hq rows;
 // else 4: b rows, whose 30 values make 60 or 120 bytes).
 template <int n, int A>
@@ -659,6 +594,224 @@ __device__ __forceinline__ void team_linearize(const Team<JT>& tm, const StepIn&
 
 // ---- the backward Riccati sweep with the slack elimination ----
 
+// The terminal cost-to-go from node N (the views' index of the last node):
+// P and p in the work area, from hq, gx and zx at node N and the node's
+// box-row terms at W_GT.
+template <typename JT>
+__device__ __forceinline__ void team_terminal(const Team<JT>& tm, int N, const StepConsts& c) {
+  const int t = tm.t;
+  const TeamPayload<JT>& q = tm.q;
+  float* const w = tm.w;
+  float* const P = w + W_P;
+  float* const p = w + W_p;
+  for (int i = t; i < NX; i += TEAM) {
+    const float* zxT = &tm.zx(N, 0);
+    float* Pi = P + i * NX;
+    for (int j = 0; j < NX; ++j) Pi[j] = 0.0f;
+    if (i < 6) {
+      Pi[i] = c.diag6_term[i];
+      p[i] = q.gx(N, i) + c.diag6_term[i] * zxT[i];
+      if (i >= 3) {
+        Pi[i] = Pi[i] + w[W_GT + G_SIG + 1 + i];
+        p[i] = p[i] + w[W_GT + G_CORR + 1 + i];
+      }
+    } else {
+      const int a = i - 6;
+      for (int j = 0; j < 4; ++j) Pi[6 + j] = ldf(q.hq(N, a * 4 + j));
+      p[i] = q.gx(N, i) + (ldf(q.hq(N, a * 4 + 0)) * zxT[6] + ldf(q.hq(N, a * 4 + 1)) * zxT[7] +
+                           ldf(q.hq(N, a * 4 + 2)) * zxT[8] + ldf(q.hq(N, a * 4 + 3)) * zxT[9]);
+    }
+  }
+  tm.sync();
+  team_clock(CK_BWD_TERMINAL);
+}
+
+// One backward stage k: gains K(k), kf(k) from P, p (updated in place in the
+// work area), with the stage's box-row terms at K(k, 0..19) (GlueOff) and its
+// defects at rh(k). Three phases, one team barrier each.
+template <typename JT>
+__device__ __forceinline__ void team_stage(const Team<JT>& tm, int k, const StepConsts& c) {
+  const int t = tm.t;
+  const float h = c.h;
+  const TeamPayload<JT>& q = tm.q;
+  float* const w = tm.w;
+  float* const P = w + W_P;
+  float* const p = w + W_p;
+
+  // the stage's blocks in registers, indexed by constants only (a row
+  // that differs between lanes reads the slot: row_ab)
+  Blocks m;
+  load_blocks_v(q, k, m);
+  // registers for what every lane reads in full, the slot for what a lane
+  // reads at its own row (an index that differs between lanes must not
+  // index a register array, which would go to local memory)
+  float rh[NX], G[20];
+  ld2<NX>(rh, &tm.rh(k, 0));
+  ld4<20>(G, &tm.K(k, 0));  // the stage's box-row terms (GlueOff)
+  const float* Gs = &tm.K(k, 0);
+  const float* zxk = &tm.zx(k, 0);
+  auto Hq = [&](int i, int j) { return ldf(q.hq(k, i * 4 + j)); };
+
+  // B: lane i: P rh + p, row i of PA = P A and of PB = P B, ghat_x
+  for (int i = t; i < NX; i += TEAM) {
+    float Pi[NX];
+    ld2<NX>(Pi, P + i * NX);
+    const float gxi = q.gx(k, i), pi = p[i];
+    float s = Pi[0] * rh[0];
+#pragma unroll
+    for (int j = 1; j < NX; ++j) s = s + Pi[j] * rh[j];
+    const float prp = s + pi;
+    float PA[NX], PB[NU];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      PA[j] = Pi[j];
+      PA[3 + j] = h * Pi[j] + Pi[3 + j];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      PA[6 + j] = (Pi[0] * m.apq[0][j] + Pi[1] * m.apq[1][j] + Pi[2] * m.apq[2][j]) +
+                  (Pi[3] * m.avq[0][j] + Pi[4] * m.avq[1][j] + Pi[5] * m.avq[2][j]) +
+                  (Pi[6] * m.aqq[0][j] + Pi[7] * m.aqq[1][j] + Pi[8] * m.aqq[2][j] + Pi[9] * m.aqq[3][j]);
+#pragma unroll
+    for (int l = 0; l < NU; ++l) {
+      float sb = (Pi[0] * m.bp[0][l] + Pi[1] * m.bp[1][l] + Pi[2] * m.bp[2][l]) +
+                 (Pi[3] * m.bv[0][l] + Pi[4] * m.bv[1][l] + Pi[5] * m.bv[2][l]);
+      if (l < 3)
+        sb = sb + (Pi[6] * m.bq[0][l] + Pi[7] * m.bq[1][l] + Pi[8] * m.bq[2][l] + Pi[9] * m.bq[3][l]);
+      PB[l] = sb;
+    }
+    float g;
+    if (i < 6) {
+      g = gxi + c.diag6_stage[i] * zxk[i];
+      if (i >= 3) g = g + Gs[G_CORR + 1 + i];
+    } else {
+      const int a = i - 6;
+      const float* zq = zxk + 6;
+      g = gxi + (Hq(a, 0) * zq[0] + Hq(a, 1) * zq[1] + Hq(a, 2) * zq[2] + Hq(a, 3) * zq[3]);
+    }
+    w[W_PRP + i] = prp;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) w[W_PA + j * NX + i] = PA[j];
+#pragma unroll
+    for (int l = 0; l < NU; ++l) w[W_PB + l * NX + i] = PB[l];
+    w[W_GHX + i] = g;
+  }
+  tm.sync();
+  team_clock(CK_BWD_B);
+
+  // C: every lane forms Rh = B^T PB + diag (the same expressions) and rv,
+  // factors Rh (chol4) and forms A_q^T Prp; job j < 10 (the lane's jobs are
+  // t, t + TEAM, ...): column j of S = B^T PA and of Qh (upper part, over
+  // PA_T's row j), qv[j], and gain column j; job 10: kf
+  {
+    float pr[NX + 2], PBc[NU][NX];
+    ld4<NX + 2>(pr, w + W_PRP);  // Prp and two floats of padding
+#pragma unroll
+    for (int mm = 0; mm < NU; ++mm) ld2<NX>(PBc[mm], w + W_PB + mm * NX);
+    float R[4][4], L[4][4], Ld[4], rv[NU];
+#pragma unroll
+    for (int mm = 0; mm < NU; ++mm)
+#pragma unroll
+      for (int l = 0; l <= mm; ++l) {
+        float v = bt_dot(m, PBc[mm], l);
+        if (l == mm) v = v + (c.rdiag_stage[l] + G[G_SIG + l]);
+        R[l][mm] = v;
+        R[mm][l] = v;
+      }
+#pragma unroll
+    for (int l = 0; l < NU; ++l) rv[l] = G[G_GHU + l] + bt_dot(m, pr, l);
+    chol4(R, L, Ld);
+    float qq[4];  // A_q^T Prp, for the q rows of qv
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      qq[i] = (m.apq[0][i] * pr[0] + m.apq[1][i] * pr[1] + m.apq[2][i] * pr[2]) +
+              (m.avq[0][i] * pr[3] + m.avq[1][i] * pr[4] + m.avq[2][i] * pr[5]) +
+              (m.aqq[0][i] * pr[6] + m.aqq[1][i] * pr[7] + m.aqq[2][i] * pr[8] +
+               m.aqq[3][i] * pr[9]);
+    for (int job = t; job <= NX; job += TEAM) {
+      float rhs[NU], sol[NU];  // S's column j, or rv for kf
+#pragma unroll
+      for (int l = 0; l < NU; ++l) rhs[l] = rv[l];
+      if (job < NX) {
+        const int j = job;
+        float col[NX];
+        ld2<NX>(col, w + W_PA + j * NX);
+        const float ghx = w[W_GHX + j];
+#pragma unroll
+        for (int l = 0; l < NU; ++l) rhs[l] = bt_dot(m, col, l);
+        float Qc[NX];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          Qc[i] = col[i];
+          Qc[3 + i] = h * col[i] + col[3 + i];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          Qc[6 + i] = (m.apq[0][i] * col[0] + m.apq[1][i] * col[1] + m.apq[2][i] * col[2]) +
+                      (m.avq[0][i] * col[3] + m.avq[1][i] * col[4] + m.avq[2][i] * col[5]) +
+                      (m.aqq[0][i] * col[6] + m.aqq[1][i] * col[7] + m.aqq[2][i] * col[8] +
+                       m.aqq[3][i] * col[9]);
+        // the diagonal additions in Qh's order (predicated on the lane's
+        // column, so that Qc keeps constant indices); the q rows below
+        // the diagonal (6 + i > j) are never read
+        // (from the registers: the gain solves below overwrite G's slots)
+        const float sigx = j == 3 ? G[G_SIG + 4] : j == 4 ? G[G_SIG + 5] : G[G_SIG + 6];
+#pragma unroll
+        for (int r = 0; r < 6; ++r) {
+          if (r == j) Qc[r] = Qc[r] + c.diag6_stage[r];
+          if (r >= 3 && r == j) Qc[r] = Qc[r] + sigx;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (6 + i <= j) Qc[6 + i] = Qc[6 + i] + Hq(i, j - 6);
+        const float* Ps = w + W_PRP;
+        float qv;
+        if (j < 3)
+          qv = ghx + Ps[j];
+        else if (j < 6)
+          qv = ghx + h * Ps[j - 3] + Ps[j];
+        else
+          qv = ghx + (j == 6 ? qq[0] : j == 7 ? qq[1] : j == 8 ? qq[2] : qq[3]);
+#pragma unroll
+        for (int l = 0; l < NU; ++l) w[W_S + l * NX + j] = rhs[l];
+        st2<NX>(w + W_PA + j * NX, Qc);
+        w[W_QV + j] = qv;
+      }
+      // one solve path for the gain columns and kf
+      chol4_solve(L, Ld, rhs, sol);
+      float* const out = job < NX ? &tm.K(k, job) : &tm.kf(k, 0);
+      const int os = job < NX ? NX : 1;
+#pragma unroll
+      for (int l = 0; l < NU; ++l) out[l * os] = -sol[l];
+    }
+  }
+  tm.sync();
+  team_clock(CK_BWD_C);
+
+  // E: lane i: row i of P = Qh + S^T K (upper, mirrored), p = qv + S^T kf
+  {
+    float Kr[NU * NX], kf[NU];
+    ld4<NU * NX>(Kr, &tm.K(k, 0));
+    ld4<NU>(kf, &tm.kf(k, 0));
+    for (int i = t; i < NX; i += TEAM) {
+      const float s0 = w[W_S + i], s1 = w[W_S + NX + i], s2 = w[W_S + 2 * NX + i],
+                  s3 = w[W_S + 3 * NX + i];
+      const float qv = w[W_QV + i];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        if (j < i) continue;
+        const float v = w[W_PA + j * NX + i] +
+                        (s0 * Kr[j] + s1 * Kr[NX + j] + s2 * Kr[2 * NX + j] + s3 * Kr[3 * NX + j]);
+        P[i * NX + j] = v;
+        P[j * NX + i] = v;
+      }
+      p[i] = qv + (s0 * kf[0] + s1 * kf[1] + s2 * kf[2] + s3 * kf[3]);
+    }
+  }
+  tm.sync();
+  team_clock(CK_BWD_E);
+}
+
 // Gains K, kf and defects rh of every stage at the iterate (zx, zu); every
 // lane returns the sum of rh^2 over the stages, in loop order.
 template <typename JT>
@@ -667,8 +820,6 @@ __device__ __forceinline__ float team_backward(const Team<JT>& tm, float mu, con
   const float h = c.h;
   const TeamPayload<JT>& q = tm.q;
   float* const w = tm.w;
-  float* const P = w + W_P;
-  float* const p = w + W_p;
 
   // Every stage's box-row terms and defect rows first: they depend on the
   // iterate only, so they need no barrier between stages. The terms of
@@ -692,199 +843,8 @@ __device__ __forceinline__ float team_backward(const Team<JT>& tm, float mu, con
   for (int k = N - 1; k >= 0; --k) r2 = r2 + sq10(&tm.rh(k, 0));
   team_clock(CK_BWD_A);
 
-  // terminal: P and p
-  for (int i = t; i < NX; i += TEAM) {
-    const float* zxT = &tm.zx(N, 0);
-    float* Pi = P + i * NX;
-    for (int j = 0; j < NX; ++j) Pi[j] = 0.0f;
-    if (i < 6) {
-      Pi[i] = c.diag6_term[i];
-      p[i] = q.gx(N, i) + c.diag6_term[i] * zxT[i];
-      if (i >= 3) {
-        Pi[i] = Pi[i] + w[W_GT + G_SIG + 1 + i];
-        p[i] = p[i] + w[W_GT + G_CORR + 1 + i];
-      }
-    } else {
-      const int a = i - 6;
-      for (int j = 0; j < 4; ++j) Pi[6 + j] = ldf(q.hq(N, a * 4 + j));
-      p[i] = q.gx(N, i) + (ldf(q.hq(N, a * 4 + 0)) * zxT[6] + ldf(q.hq(N, a * 4 + 1)) * zxT[7] +
-                           ldf(q.hq(N, a * 4 + 2)) * zxT[8] + ldf(q.hq(N, a * 4 + 3)) * zxT[9]);
-    }
-  }
-  tm.sync();
-  team_clock(CK_BWD_TERMINAL);
-
-  for (int k = N - 1; k >= 0; --k) {
-    // the stage's blocks in registers, indexed by constants only (a row
-    // that differs between lanes reads the slot: row_ab)
-    Blocks m;
-    load_blocks_v(q, k, m);
-    // registers for what every lane reads in full, the slot for what a lane
-    // reads at its own row (an index that differs between lanes must not
-    // index a register array, which would go to local memory)
-    float rh[NX], G[20];
-    ld2<NX>(rh, &tm.rh(k, 0));
-    ld4<20>(G, &tm.K(k, 0));  // the stage's box-row terms (GlueOff)
-    const float* Gs = &tm.K(k, 0);
-    const float* zxk = &tm.zx(k, 0);
-    auto Hq = [&](int i, int j) { return ldf(q.hq(k, i * 4 + j)); };
-
-    // B: lane i: P rh + p, row i of PA = P A and of PB = P B, ghat_x
-    for (int i = t; i < NX; i += TEAM) {
-      float Pi[NX];
-      ld2<NX>(Pi, P + i * NX);
-      const float gxi = q.gx(k, i), pi = p[i];
-      float s = Pi[0] * rh[0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j) s = s + Pi[j] * rh[j];
-      const float prp = s + pi;
-      float PA[NX], PB[NU];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        PA[j] = Pi[j];
-        PA[3 + j] = h * Pi[j] + Pi[3 + j];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        PA[6 + j] = (Pi[0] * m.apq[0][j] + Pi[1] * m.apq[1][j] + Pi[2] * m.apq[2][j]) +
-                    (Pi[3] * m.avq[0][j] + Pi[4] * m.avq[1][j] + Pi[5] * m.avq[2][j]) +
-                    (Pi[6] * m.aqq[0][j] + Pi[7] * m.aqq[1][j] + Pi[8] * m.aqq[2][j] + Pi[9] * m.aqq[3][j]);
-#pragma unroll
-      for (int l = 0; l < NU; ++l) {
-        float sb = (Pi[0] * m.bp[0][l] + Pi[1] * m.bp[1][l] + Pi[2] * m.bp[2][l]) +
-                   (Pi[3] * m.bv[0][l] + Pi[4] * m.bv[1][l] + Pi[5] * m.bv[2][l]);
-        if (l < 3)
-          sb = sb + (Pi[6] * m.bq[0][l] + Pi[7] * m.bq[1][l] + Pi[8] * m.bq[2][l] + Pi[9] * m.bq[3][l]);
-        PB[l] = sb;
-      }
-      float g;
-      if (i < 6) {
-        g = gxi + c.diag6_stage[i] * zxk[i];
-        if (i >= 3) g = g + Gs[G_CORR + 1 + i];
-      } else {
-        const int a = i - 6;
-        const float* zq = zxk + 6;
-        g = gxi + (Hq(a, 0) * zq[0] + Hq(a, 1) * zq[1] + Hq(a, 2) * zq[2] + Hq(a, 3) * zq[3]);
-      }
-      w[W_PRP + i] = prp;
-#pragma unroll
-      for (int j = 0; j < NX; ++j) w[W_PA + j * NX + i] = PA[j];
-#pragma unroll
-      for (int l = 0; l < NU; ++l) w[W_PB + l * NX + i] = PB[l];
-      w[W_GHX + i] = g;
-    }
-    tm.sync();
-    team_clock(CK_BWD_B);
-
-    // C: every lane forms Rh = B^T PB + diag (the same expressions) and rv,
-    // and factors Rh (chol4); lane j < 10: column j of S = B^T PA and of Qh
-    // (upper part, over PA_T's row j), qv[j], and gain column j; lane 10: kf
-    {
-      float pr[NX + 2], PBc[NU][NX];
-      ld4<NX + 2>(pr, w + W_PRP);  // Prp and two floats of padding
-#pragma unroll
-      for (int mm = 0; mm < NU; ++mm) ld2<NX>(PBc[mm], w + W_PB + mm * NX);
-      float R[4][4], L[4][4], Ld[4], rv[NU];
-#pragma unroll
-      for (int mm = 0; mm < NU; ++mm)
-#pragma unroll
-        for (int l = 0; l <= mm; ++l) {
-          float v = bt_dot(m, PBc[mm], l);
-          if (l == mm) v = v + (c.rdiag_stage[l] + G[G_SIG + l]);
-          R[l][mm] = v;
-          R[mm][l] = v;
-        }
-#pragma unroll
-      for (int l = 0; l < NU; ++l) rv[l] = G[G_GHU + l] + bt_dot(m, pr, l);
-      chol4(R, L, Ld);
-      for (int job = t; job <= NX; job += TEAM) {
-        float rhs[NU], sol[NU];  // S's column j, or rv for kf
-#pragma unroll
-        for (int l = 0; l < NU; ++l) rhs[l] = rv[l];
-        if (job < NX) {
-          const int j = job;
-          float col[NX];
-          ld2<NX>(col, w + W_PA + j * NX);
-          const float ghx = w[W_GHX + j];
-#pragma unroll
-          for (int l = 0; l < NU; ++l) rhs[l] = bt_dot(m, col, l);
-          float Qc[NX], qq[4];
-#pragma unroll
-          for (int i = 0; i < 3; ++i) {
-            Qc[i] = col[i];
-            Qc[3 + i] = h * col[i] + col[3 + i];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            Qc[6 + i] = (m.apq[0][i] * col[0] + m.apq[1][i] * col[1] + m.apq[2][i] * col[2]) +
-                        (m.avq[0][i] * col[3] + m.avq[1][i] * col[4] + m.avq[2][i] * col[5]) +
-                        (m.aqq[0][i] * col[6] + m.aqq[1][i] * col[7] + m.aqq[2][i] * col[8] +
-                         m.aqq[3][i] * col[9]);
-            qq[i] = (m.apq[0][i] * pr[0] + m.apq[1][i] * pr[1] + m.apq[2][i] * pr[2]) +
-                    (m.avq[0][i] * pr[3] + m.avq[1][i] * pr[4] + m.avq[2][i] * pr[5]) +
-                    (m.aqq[0][i] * pr[6] + m.aqq[1][i] * pr[7] + m.aqq[2][i] * pr[8] +
-                     m.aqq[3][i] * pr[9]);
-          }
-          // the diagonal additions in Qh's order (predicated on the lane's
-          // column, so that Qc keeps constant indices); the q rows below
-          // the diagonal (6 + i > j) are never read
-          // (from the registers: the gain solves below overwrite G's slots)
-          const float sigx = j == 3 ? G[G_SIG + 4] : j == 4 ? G[G_SIG + 5] : G[G_SIG + 6];
-#pragma unroll
-          for (int r = 0; r < 6; ++r) {
-            if (r == j) Qc[r] = Qc[r] + c.diag6_stage[r];
-            if (r >= 3 && r == j) Qc[r] = Qc[r] + sigx;
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (6 + i <= j) Qc[6 + i] = Qc[6 + i] + Hq(i, j - 6);
-          const float* Ps = w + W_PRP;
-          float qv;
-          if (j < 3)
-            qv = ghx + Ps[j];
-          else if (j < 6)
-            qv = ghx + h * Ps[j - 3] + Ps[j];
-          else
-            qv = ghx + (j == 6 ? qq[0] : j == 7 ? qq[1] : j == 8 ? qq[2] : qq[3]);
-#pragma unroll
-          for (int l = 0; l < NU; ++l) w[W_S + l * NX + j] = rhs[l];
-          st2<NX>(w + W_PA + j * NX, Qc);
-          w[W_QV + j] = qv;
-        }
-        // one solve path for the gain columns and kf
-        chol4_solve(L, Ld, rhs, sol);
-        float* const out = job < NX ? &tm.K(k, job) : &tm.kf(k, 0);
-        const int os = job < NX ? NX : 1;
-#pragma unroll
-        for (int l = 0; l < NU; ++l) out[l * os] = -sol[l];
-      }
-    }
-    tm.sync();
-    team_clock(CK_BWD_C);
-
-    // E: lane i: row i of P = Qh + S^T K (upper, mirrored), p = qv + S^T kf
-    {
-      float Kr[NU * NX], kf[NU];
-      ld4<NU * NX>(Kr, &tm.K(k, 0));
-      ld4<NU>(kf, &tm.kf(k, 0));
-      for (int i = t; i < NX; i += TEAM) {
-        const float s0 = w[W_S + i], s1 = w[W_S + NX + i], s2 = w[W_S + 2 * NX + i],
-                    s3 = w[W_S + 3 * NX + i];
-        const float qv = w[W_QV + i];
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          if (j < i) continue;
-          const float v = w[W_PA + j * NX + i] +
-                          (s0 * Kr[j] + s1 * Kr[NX + j] + s2 * Kr[2 * NX + j] + s3 * Kr[3 * NX + j]);
-          P[i * NX + j] = v;
-          P[j * NX + i] = v;
-        }
-        p[i] = qv + (s0 * kf[0] + s1 * kf[1] + s2 * kf[2] + s3 * kf[3]);
-      }
-    }
-    tm.sync();
-    team_clock(CK_BWD_E);
-  }
+  team_terminal(tm, N, c);
+  for (int k = N - 1; k >= 0; --k) team_stage(tm, k, c);
   return r2;
 }
 

@@ -115,9 +115,9 @@ int riccati_sweep_backward_launch(int jac_bf16, const ndp::StepConsts* c,
   const unsigned blocks = (unsigned)((B + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (jac_bf16)
-    riccati_sweep_backward_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(*p, *c, B);
+    NDP_LAUNCH(riccati_sweep_backward_kernel<__nv_bfloat16>, blocks, threads, 0, s, *p, *c, B);
   else
-    riccati_sweep_backward_kernel<float><<<blocks, threads, 0, s>>>(*p, *c, B);
+    NDP_LAUNCH(riccati_sweep_backward_kernel<float>, blocks, threads, 0, s, *p, *c, B);
   return (int)cudaGetLastError();
 }
 
@@ -127,9 +127,9 @@ int riccati_sweep_forward_launch(int jac_bf16, const ndp::StepConsts* c,
   const unsigned blocks = (unsigned)((B + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (jac_bf16)
-    riccati_sweep_forward_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(*p, *c, B);
+    NDP_LAUNCH(riccati_sweep_forward_kernel<__nv_bfloat16>, blocks, threads, 0, s, *p, *c, B);
   else
-    riccati_sweep_forward_kernel<float><<<blocks, threads, 0, s>>>(*p, *c, B);
+    NDP_LAUNCH(riccati_sweep_forward_kernel<float>, blocks, threads, 0, s, *p, *c, B);
   return (int)cudaGetLastError();
 }
 

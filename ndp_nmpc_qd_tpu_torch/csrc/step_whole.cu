@@ -122,7 +122,7 @@ static int step_whole_launch_t(const ndp::StepConsts* c, const ndp::StepPtrs* p,
       step_whole_kernel<JT>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)g.blocks;
-  step_whole_kernel<JT><<<blocks, g.threads, g.smem, s>>>(*p, *c, B, g.S);
+  NDP_LAUNCH(step_whole_kernel<JT>, blocks, g.threads, g.smem, s, *p, *c, B, g.S);
   return (int)cudaGetLastError();
 }
 

@@ -204,3 +204,87 @@ def c_geometry(fn, B: int, n_stages: int, jac_bf16: bool) -> dict:
     out = (ctypes.c_longlong * len(GEOMETRY_KEYS))()
     fn(n_stages, int(jac_bf16), B, out)
     return dict(zip(GEOMETRY_KEYS, out))
+
+
+# ---- the streamed sweeps' launch geometry: K8 (csrc/riccati_packed.cu,
+# ndp::k8) and K4 (csrc/riccati_iter.cu, ndp::k4) ----
+
+# Lanes a scenario, the compute threads a block at most (NDP_K8_TEAM /
+# NDP_K8_THREADS, NDP_TEAM / NDP_K4_THREADS as built by default) and the
+# scenarios 16 bytes of a row hold, of each. A block's shared memory is its
+# S slots (one stage buffer and the sweep's working set each, whatever the
+# horizon), then a landing buffer of one stage's input rows and two output
+# buffers of a stage's output rows, each field a box [rows][S] on 128 bytes,
+# and an mbarrier; its threads are the compute threads in whole warps and
+# one producer warp.
+SWEEP_KERNELS = {
+    "packed": dict(team=4, max_threads=256, vec=4),
+    "glue": dict(team=4, max_threads=320, vec=8),
+}
+_PACKED_IN = (100, 40, 10, 100, 16, 10, 4, 10, 4)  # a, b, r, hxx, huu, gx, gu, sig_x, sig_u
+_PACKED_OUT = (40, 4)                              # K, kf
+_GLUE_IN_F32 = (10, 4, 6, 10, 4, 4, 3, 3, 10, 4, 4, 4, 3, 3, 4, 4, 3, 3, 1)  # ..., mu
+_GLUE_IN_JAC = (16, 40, 30)                        # hq, a, b
+_GLUE_OUT = (40, 4, 10, 1)                         # K, kf, rh, res2
+_GLUE_SLOT = (("gx", 10), ("gu", 4), ("bc", 6), ("r", 10), ("lub", 4), ("uub", 4), ("lxb", 3),
+              ("uxb", 3), ("zx", 10), ("zu", 4), ("sul", 4), ("suu", 4), ("sxl", 3), ("sxu", 3),
+              ("lul", 4), ("luu", 4), ("lxl", 3), ("lxu", 3), ("K", 40), ("kf", 4), ("rh", 10))
+
+
+def sweep_arrays(kind: str, jac_bf16: bool = False) -> tuple:
+    """(slot arrays, column arrays): (name, bytes) of one scenario's slot of
+    K8 ("packed") or K4 ("glue") in slot order, every array starting on 16
+    bytes, and of its columns of the block's landing buffer (one stage's
+    input rows; K4's also mu) and two output buffers (a stage's output rows:
+    K8 K and kf, K4 also rh and res2)."""
+    f = lambda n: 16 * -(-n // 4)  # floats -> bytes, padded to 16
+    if kind == "packed":
+        slot = [("abr", f(160)), ("hxx_cols", f(120)), ("huu_cols", f(16)), ("ghat", f(16)),
+                ("sig", f(16)), ("kf", f(4)), ("pabr_t", f(15 * 16)), ("k_cols", f(40))]
+        cols = [("land", 4 * sum(_PACKED_IN)), ("out", 2 * 4 * sum(_PACKED_OUT))]
+    else:
+        jb = 2 if jac_bf16 else 4
+        slot = [(n, f(d)) for n, d in _GLUE_SLOT] + [("hq_a_b", 16 * -(-86 * jb // 16))]
+        slot += [("work", f(WORK_FLOATS)), ("zx1", f(10))]
+        cols = [("land_f32", 4 * sum(_GLUE_IN_F32)), ("land_jac", jb * sum(_GLUE_IN_JAC)),
+                ("out", 2 * 4 * sum(_GLUE_OUT))]
+    return slot, cols
+
+
+def sweep_smem(kind: str, S: int, jac_bf16: bool = False) -> int:
+    """Shared-memory bytes of a block of S scenarios (`ndp::k8::layout`,
+    `ndp::k4::layout`)."""
+    r = lambda b: -(-b // 128) * 128
+    slot, _ = sweep_arrays(kind, jac_bf16)
+    stride = sum(b for _, b in slot) // 4
+    stride += (4 - stride % 32) % 32
+    if kind == "packed":
+        boxes = [4 * rows for rows in _PACKED_IN] + 2 * [4 * rows for rows in _PACKED_OUT]
+    else:
+        jb = 2 if jac_bf16 else 4
+        boxes = ([4 * rows for rows in _GLUE_IN_F32] + [jb * rows for rows in _GLUE_IN_JAC]
+                 + 2 * [4 * rows for rows in _GLUE_OUT])
+    return r(4 * S * stride) + sum(r(b * S) for b in boxes) + 16
+
+
+def sweep_geometry(kind: str, B: int, jac_bf16: bool = False) -> dict:
+    """Launch geometry of K8 ("packed") or K4 ("glue") for B scenarios, as
+    `ndp::k8::geometry` / `ndp::k4::geometry` compute it: as many scenarios
+    a block as fit SMEM_MAX, at most the kernel's compute threads and B, a
+    multiple of the step that fills whole warps and 16-byte rows when there
+    are that many; the compute threads in whole warps, then the producer
+    warp."""
+    k = SWEEP_KERNELS[kind]
+    S = min(k["max_threads"] // k["team"], B)
+    while S > 1 and sweep_smem(kind, S, jac_bf16) > SMEM_MAX:
+        S -= 1
+    step = k["vec"] if k["vec"] * k["team"] > 32 else 32 // k["team"]
+    if S >= step:
+        S -= S % step
+    slot, cols = sweep_arrays(kind, jac_bf16)
+    stride = sum(b for _, b in slot) // 4
+    stride += (4 - stride % 32) % 32
+    return dict(zip(GEOMETRY_KEYS, (
+        k["team"], S, -(-S * k["team"] // 32) * 32 + 32, -(-B // S),
+        sweep_smem(kind, S, jac_bf16), sum(b for _, b in slot + cols), 4 * stride,
+    )))

@@ -146,57 +146,69 @@ def riccati_forward_packed_plain(a, b, r, K, kf, dx0, clip_lo=None, clip_hi=None
 
 # ---- the kernels ----
 
-WS_PLANES = 240  # K8's per-scenario scratch: P (100), PA (100), PB (40)
-
-
 class _PackedPtrs(ctypes.Structure):
     """Mirror of `ndp::PackedPtrs` (csrc/riccati_packed.cu)."""
 
     _fields_ = _cuda.pointers((
-        "hxx", "sig_x", "huu", "sig_u", "gx", "gu", "a", "b", "r", "K", "kf", "ws",
+        "hxx", "sig_x", "huu", "sig_u", "gx", "gu", "a", "b", "r", "K", "kf",
         "dx0", "clip_lo", "clip_hi", "dx", "du",
     ))
 
 
-def _lib():
+def _lib(lib=None):
     return _cuda.bind(
         "riccati_packed", _PackedPtrs,
         ("riccati_packed_backward_launch", "riccati_packed_forward_launch"),
+        "riccati_packed_backward_geometry", lib=lib,
     )
 
 
-def _launch(fn_name, tensors: dict, a):
-    """Check every tensor (f32, contiguous, on a's card) and launch."""
+def geometry(B: int, lib=None) -> dict:
+    """K8's launch geometry as its library computes it (mirrored by
+    `_cuda.sweep_geometry("packed", B)`)."""
+    return _cuda.c_geometry(_lib(lib).riccati_packed_backward_geometry, B, 0, False)
+
+
+def _launch(fn_name, tensors: dict, a, lib=None):
+    """Check every tensor (f32, contiguous, on a's card) and launch from
+    `lib` (a build of csrc/riccati_packed.cu; None: the default build)."""
     _cuda.need_cuda("riccati_sweep_packed", a)
     N, _, B = a.shape
     shapes = dict(
         hxx=(N + 1, NX * NX, B), sig_x=(N + 1, NX, B), huu=(N, NU * NU, B), sig_u=(N, NU, B),
         gx=(N + 1, NX, B), gu=(N, NU, B), a=(N, NX * NX, B), b=(N, NX * NU, B), r=(N, NX, B),
-        K=(N, NU * NX, B), kf=(N, NU, B), ws=(WS_PLANES, B), dx0=(1, NX, B),
+        K=(N, NU * NX, B), kf=(N, NU, B), dx0=(1, NX, B),
         clip_lo=(N, NU, B), clip_hi=(N, NU, B), dx=(N + 1, NX, B), du=(N, NU, B),
     )
     for name, t in tensors.items():
         if t is not None:
             _cuda.check(name, t, shapes[name], a.device)
     ptrs = _PackedPtrs(**{n: _cuda.ptr(t) for n, t in tensors.items()})
-    _cuda.launch(getattr(_lib(), fn_name), False, _cuda.step_consts(N, dict(h=0.0)), ptrs, B,
+    _cuda.launch(getattr(_lib(lib), fn_name), False, _cuda.step_consts(N, dict(h=0.0)), ptrs, B,
                  a.device)
 
 
 def riccati_backward_packed(hxx, sig_x, huu, sig_u, ghat_x, ghat_u, a, b, r):
     """K8, the dense backward sweep, one kernel launch; arguments and
-    results as `riccati_backward_packed_plain`, f32 on the card, where the
-    kernel also gets a (240, B) scratch for P, PA and PB. Counts its
+    results as `riccati_backward_packed_plain`, f32 on the card. Counts its
     launches in `riccati_backward_packed.launches`."""
     if a.device.type == "cpu":
         return riccati_backward_packed_plain(hxx, sig_x, huu, sig_u, ghat_x, ghat_u, a, b, r)
+    out = backward_packed_launch(hxx, sig_x, huu, sig_u, ghat_x, ghat_u, a, b, r)
+    riccati_backward_packed.launches += 1
+    return out
+
+
+def backward_packed_launch(hxx, sig_x, huu, sig_u, ghat_x, ghat_u, a, b, r, lib=None):
+    """Launch K8 from `lib` (a build of csrc/riccati_packed.cu, such as a
+    variant of `_build.load`; None: the default build) on CUDA tensors and
+    return (K, kf); counts nothing."""
     N, _, B = a.shape
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=a.device)
     K, kf = new(N, NU * NX, B), new(N, NU, B)
     _launch("riccati_packed_backward_launch", dict(
         hxx=hxx, sig_x=sig_x, huu=huu, sig_u=sig_u, gx=ghat_x, gu=ghat_u, a=a, b=b, r=r,
-        K=K, kf=kf, ws=new(WS_PLANES, B)), a)
-    riccati_backward_packed.launches += 1
+        K=K, kf=kf), a, lib)
     return K, kf
 
 

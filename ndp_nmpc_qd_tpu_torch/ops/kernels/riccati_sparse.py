@@ -492,10 +492,17 @@ class _IterPtrs(ctypes.Structure):
     )
 
 
-def _lib():
+def _lib(lib=None):
     return _cuda.bind(
-        "riccati_iter", _IterPtrs, ("riccati_backward_launch", "riccati_forward_launch")
+        "riccati_iter", _IterPtrs, ("riccati_backward_launch", "riccati_forward_launch"),
+        "riccati_backward_geometry", lib=lib,
     )
+
+
+def geometry(B: int, jac_bf16: bool, lib=None) -> dict:
+    """K4's launch geometry as its library computes it (mirrored by
+    `_cuda.sweep_geometry("glue", B, jac_bf16)`)."""
+    return _cuda.c_geometry(_lib(lib).riccati_backward_geometry, B, 0, jac_bf16)
 
 
 def _state_shapes(N, B):
@@ -531,11 +538,22 @@ def riccati_backward_glue(
     """Backward sweep of one IPM iteration, one kernel launch; arguments and
     results as `riccati_backward_glue_plain`. Counts its launches in
     `riccati_backward_glue.launches`."""
+    args = (hq, gx, gu, a, b, bc, r, zx, zu, su_lo, su_up, sx_lo, sx_up,
+            lu_lo, lu_up, lx_lo, lx_up, lub, uub, lxb, uxb, mu)
     if a.device.type == "cpu":
-        return riccati_backward_glue_plain(
-            hq, gx, gu, a, b, bc, r, zx, zu, su_lo, su_up, sx_lo, sx_up,
-            lu_lo, lu_up, lx_lo, lx_up, lub, uub, lxb, uxb, mu, **consts,
-        )
+        return riccati_backward_glue_plain(*args, **consts)
+    out = backward_glue_launch(*args, **consts)
+    riccati_backward_glue.launches += 1
+    return out
+
+
+def backward_glue_launch(
+    hq, gx, gu, a, b, bc, r, zx, zu, su_lo, su_up, sx_lo, sx_up,
+    lu_lo, lu_up, lx_lo, lx_up, lub, uub, lxb, uxb, mu, lib=None, **consts,
+):
+    """Launch K4 from `lib` (a build of csrc/riccati_iter.cu, such as a
+    variant of `_build.load`; None: the default build) on CUDA tensors and
+    return (K, kf, rhat, res2); counts nothing."""
     N, _, B = a.shape
     out = {n: torch.empty(s, dtype=torch.float32, device=a.device)
            for n, s in _state_shapes(N, B).items() if n in ("K", "kf", "rh", "res2")}
@@ -544,9 +562,8 @@ def riccati_backward_glue(
         dict(hq=hq, gx=gx, gu=gu, a=a, b=b, bc=bc, r=r, lub=lub, uub=uub, lxb=lxb, uxb=uxb),
         dict(state, mu=mu, **out), a,
     )
-    _cuda.launch(_lib().riccati_backward_launch, a.dtype == torch.bfloat16,
+    _cuda.launch(_lib(lib).riccati_backward_launch, a.dtype == torch.bfloat16,
                  _cuda.step_consts(N, consts), ptrs, B, dev)
-    riccati_backward_glue.launches += 1
     return out["K"], out["kf"], out["rh"], out["res2"]
 
 

@@ -12,8 +12,11 @@ at their own scale (one bf16 ulp of a Jacobian entry may flip). Both: `ok`
 identical.
 
 K1 and K2 run a team of lanes a scenario with the scenario's working set
-in shared memory; B=1 and B=301 leave a ragged last block whatever the
-geometry, and a NaN in one scenario's x0 must stay in that scenario.
+in shared memory, K8 and K4 the same one stage at a time (the rows staged
+by tensor copies where B allows them, element by element otherwise); B=1
+and B=301 leave a ragged last block whatever the geometry, B=304 takes the
+tensor copies, and a NaN in one scenario's input must stay in that
+scenario.
 
 The two-kernel path's kernels (K3 linearization, K2 whole IPM with and
 without the folded axpy, K4/K5 one glue-fused IPM iteration), K6/K7 and the
@@ -235,3 +238,86 @@ def test_packed_kernels_match_plain_on_the_card(call):
     torch.cuda.synchronize()
     assert not bad, f"K8/K9 ({call}): {bad} out of tolerance: {testing.describe(errs)}"
     assert counts() == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 301, 304])  # 304: the tensor copies (B a multiple of 8)
+@pytest.mark.parametrize("call", ["lqr_start", "newton"])
+def test_streamed_dense_sweep_k8_matches_plain(call, B):
+    """K8 against its plain version at `testing.check_packed`'s tolerance
+    (K9 rides along on the plain gains)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    p, dx0 = testing.dense_payload(NdpNmpcConfig(), B, dev, seed=6)
+    before = riccati.riccati_backward_packed.launches
+    errs, bad = testing.check_packed(testing.packed_args(p, dx0, call))
+    torch.cuda.synchronize()
+    assert not bad, f"K8/K9 ({call}, B={B}): {bad} out of tolerance: {testing.describe(errs)}"
+    assert riccati.riccati_backward_packed.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 301, 304])
+@pytest.mark.parametrize("jac_bf16", [False, True])
+def test_streamed_glue_sweep_k4_matches_plain(jac_bf16, B):
+    """K4 against its plain version at `testing.check_iter`'s tolerances
+    (K5 rides along on the plain gains)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    cfg = NdpNmpcConfig()
+    lc = lin_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16)
+    ic = ipm_consts(cfg.ocp, num_iters=3)
+    qp = linearize.linearize_stage_data_plain(
+        *testing.kernel_inputs(B, cfg.ocp.N_node, dev, seed=7), **lc)
+    before = riccati_sparse.riccati_backward_glue.launches
+    errs, bad = testing.check_iter(testing.iter_args(qp, ic), ic)
+    torch.cuda.synchronize()
+    assert not bad, f"K4/K5 (B={B}): {bad} out of tolerance: {testing.describe(errs)}"
+    assert riccati_sparse.riccati_backward_glue.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [301, 304])
+def test_streamed_sweeps_keep_a_nan_in_its_scenario(B):
+    """K8 with one scenario's A NaN and K4 (both payloads) with one
+    scenario's iterate NaN: that scenario's outputs are NaN where the plain
+    version's are, and every other scenario matches its plain value at the
+    tolerances above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    cfg = NdpNmpcConfig()
+    N, bad_b = cfg.ocp.N_node, 150
+    keep = torch.ones(B, dtype=torch.bool, device=dev)
+    keep[bad_b] = False
+
+    def held(named):
+        for name, (_, got, ref) in named.items():
+            assert torch.equal(got[..., bad_b].isnan(), ref[..., bad_b].isnan()), name
+        assert any(bool(got[..., bad_b].isnan().any()) for _, got, _ in named.values())
+        errs, bad = testing.compare({n: (kind, g[..., keep], r[..., keep])
+                                     for n, (kind, g, r) in named.items()})
+        assert not bad, f"off the NaN scenario: {bad}: {testing.describe(errs)}"
+
+    p, dx0 = testing.dense_payload(cfg, B, dev, seed=8)
+    bwd = [t.clone() for t in testing.packed_args(p, dx0, "newton")[:9]]
+    bwd[6][3, 5, bad_b] = float("nan")
+    got = riccati.riccati_backward_packed(*bwd)
+    ref = riccati.riccati_backward_packed_plain(*bwd)
+    torch.cuda.synchronize()
+    held({n: ("primal", g, r) for n, g, r in zip(("K", "kf"), got, ref)})
+
+    ic = ipm_consts(cfg.ocp, num_iters=3)
+    kw = {k: ic[k] for k in ("h", "diag6_stage", "diag6_term", "rdiag_stage")}
+    for jac_bf16 in (False, True):
+        lc = lin_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16)
+        qp = linearize.linearize_stage_data_plain(*testing.kernel_inputs(B, N, dev, 9), **lc)
+        args = [t.clone() for t in testing.iter_args(qp, ic)[:22]]
+        args[7][4, 2, bad_b] = float("nan")
+        got = riccati_sparse.riccati_backward_glue(*args, **kw)
+        ref = riccati_sparse.riccati_backward_glue_plain(*args, **kw)
+        torch.cuda.synchronize()
+        held({n: (kind, g, r) for (n, kind), g, r in zip(
+            (("K", "primal"), ("kf", "primal"), ("rhat", "primal"), ("res2", "resid")), got, ref)})

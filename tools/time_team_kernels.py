@@ -141,7 +141,7 @@ def timing(dev, mlp, B=65536, reps=10):
 PHASES = (
     "stage in", "linearize", "IPM start", "bwd terminal", "bwd A (defects, glue)",
     "bwd B (P rh, PA, PB)", "bwd C (S, Qh, Rh, chol4, gains)", "bwd E (P update)",
-    "rollout", "box rows", "row sums c1-c4", "pass B", "stage out",
+    "rollout", "box rows", "row sums c1-c4", "pass B", "stage out", "wait", "bwd D",
 )
 
 
