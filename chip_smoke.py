@@ -19,8 +19,10 @@ Phases, one line each; any failure exits non-zero before the last line:
       tick checked (duals and mu at their own scale);
    b. K3 (linearization), K2 (whole IPM, 3 chained solves, with and without
       the folded axpy), K4 and K5 (one glue-fused IPM iteration), each on
-      the same inputs as its plain version; and the one-kernel step against
-      the two-kernel path (K3 + K2) over 3 chained ticks in f32.
+      the same inputs as its plain version, K4 + K5 also at B=4095, where K4
+      runs its one-thread sweep (the rows are not 16-byte aligned: no tensor
+      copy); and the one-kernel step against the two-kernel path (K3 + K2)
+      over 3 chained ticks in f32.
    c. K6 and K7 (one Newton sweep, `riccati_sweep_sparse`) in both ways the
       IPM calls them: at the zero iterate with the clip and the hold
       rollout (the clipped-LQR start), and at a jittered iterate with
@@ -28,7 +30,9 @@ Phases, one line each; any failure exits non-zero before the last line:
    d. K8 and K9 (the dense sweep of the legacy packed path,
       `riccati_sweep_packed`, f32) in both ways `ipm_packed` calls them:
       the clipped-LQR start (zero sig, clip) and a Newton iteration
-      (nonzero sig, the defects rhat, no clip).
+      (nonzero sig, the defects rhat, no clip); at B=4096 (tensor copies)
+      and 4095 (element copies).
+   Each K4 and K8 launch's route is checked against its batch.
 4. main path: bf16 downwash forecast + `reset` + `update` of the deployed
    controller (warm start, 3 QP iterations, bf16 Jacobians, one K1 launch a
    tick) at B=65536: health, mean step time over 30 queued ticks (CUDA
@@ -49,11 +53,14 @@ Phases, one line each; any failure exits non-zero before the last line:
 7. closed loop: 150-tick hover recovery at B=65536 through an RK4 plant that
    feels the same node-0 forecast force the controller was given.
 8. kernels: each kernel against its plain version once more at B=65536 on
-   the state its path left (the deployed bf16 payload), then one JSON line,
+   the state its path left (the deployed bf16 payload), K4 and K8 also on
+   its first 65535 scenarios (the swarms' batch: K4's one-thread sweep,
+   K8's element copies), timed there too; then one JSON line,
    each hand-written kernel with its launches on its path, time, bound,
    plain-version time and error against it (K1, K2, K4 and K8 also with
    their lanes a scenario, scenarios, threads and shared memory a block,
-   and bound share).
+   and bound share; K4 and K8 with the route each batch took and their time
+   and error at the odd batch).
 9. missions through the port's CLI (`cli.run_mission`), 200 hold ticks and
    16 s of the figure-eight (1000 ticks), recovery on:
    a. `three_qd_ndp` (3 drones: the scan controller cold@12, as the JAX
@@ -372,6 +379,27 @@ def phase_compare(B, dev, seed, mlp):
     return res
 
 
+def first(ts, B):
+    """The first B scenarios of kernel-layout tensors (batch last), each
+    contiguous; None stays None."""
+    return [None if t is None else t[..., :B].contiguous() for t in ts]
+
+
+# The staging route of a K4 / K8 launch at batch B: tensor copies where a
+# box row is 16-byte aligned (B a multiple of 8 / 4), else K4's one-thread
+# sweep and K8's element copies.
+def k4_route(B):
+    return "tensor copies" if B % 8 == 0 else "one-thread sweep"
+
+
+def k8_route(B):
+    return "tensor copies" if B % 4 == 0 else "element copies"
+
+
+def check_route(name, got, want, B):
+    check(got == want, f"{name} at B={B} took {got!r}, want {want!r}")
+
+
 PACKED_ITERS = 12  # the packed path has no warm start: cold@12, as the JAX CLI runs cold
 
 # Each path's kernels and launches per tick (qp_iters=3 unless given).
@@ -441,14 +469,17 @@ def phase_compare_two_kernel(B, dev, seed, mlp):
         lc = lin_consts(CFG.ocp, CFG.vehicle, True, jac_bf16=jac_bf16)
         ins = testing.kernel_inputs(B, N, dev, seed)
         errs, bad, qp = testing.check_linearize(ins, lc)
-        lines = {"K3": (errs, bad)}
+        lines = {("K3", B): (errs, bad)}
         for name, xu in (("K2, 3 chained solves", None), ("K2 with the axpy fold", ins[:2])):
-            lines[name] = testing.check_ipm_whole(
+            lines[name, B] = testing.check_ipm_whole(
                 qp, cold_warm(N, B, torch.float32, dev), ic, xu=xu)
-        lines["K4 + K5"] = testing.check_iter(testing.iter_args(qp, ic), ic)
-        for name, (errs, bad) in lines.items():
-            print(f"kernel vs plain ({name}, {tag} payload, B={B}): {testing.describe(errs)}")
-            check(not bad, f"{name} vs plain ({tag} payload, B={B}): "
+        for b in (B, B - 1):
+            lines[f"K4 + K5, K4 by {k4_route(b)}", b] = testing.check_iter(
+                testing.iter_args(first(qp, b), ic), ic)
+            check_route("K4", riccati_sparse.last_route(), k4_route(b), b)
+        for (name, b), (errs, bad) in lines.items():
+            print(f"kernel vs plain ({name}, {tag} payload, B={b}): {testing.describe(errs)}")
+            check(not bad, f"{name} vs plain ({tag} payload, B={b}): "
                   f"{', '.join(bad)} out of tolerance")
 
     x0, xr, ur, other = inputs(B, dev, seed)
@@ -489,10 +520,15 @@ def phase_compare_packed(B, dev, seed):
     """K8 and K9 against their plain versions on the same inputs, f32, in
     both ways `ipm_packed` calls them (`testing.packed_args`)."""
     p, dx0 = testing.dense_payload(CFG, B, dev, seed)
-    for call in ("lqr_start", "newton"):
-        errs, bad = testing.check_packed(testing.packed_args(p, dx0, call))
-        print(f"kernel vs plain (K8 + K9, {call}, f32, B={B}): {testing.describe(errs)}")
-        check(not bad, f"K8 + K9 vs plain ({call}, B={B}): {', '.join(bad)} out of tolerance")
+    for b in (B, B - 1):
+        for call in ("lqr_start", "newton"):
+            errs, bad = testing.check_packed(first(testing.packed_args(p, dx0, call), b))
+            route = riccati.last_route() if dev.type == "cuda" else "plain version"
+            print(f"kernel vs plain (K8 + K9, {call}, f32, B={b}, K8 by {route}): "
+                  f"{testing.describe(errs)}")
+            check(not bad, f"K8 + K9 vs plain ({call}, B={b}): {', '.join(bad)} out of tolerance")
+            if dev.type == "cuda":
+                check_route("K8", route, k8_route(b), b)
 
 
 def phase_path(B, dev, seed, mlp, path="one-kernel", warm_ticks=3, timed_ticks=30):
@@ -759,12 +795,25 @@ def phase_kernels_two_kernel(two, per, mlp):
     K, kf, rh, res2 = plain4(*bwd, **kw4)
     fwd = (args[3], args[4], args[5], rh, K, kf, *args[7:22], args[22])
     ms4 = cuda_ms(lambda: KERNELS["K4"](*bwd, **kw4), 10)
+    check_route("K4", riccati_sparse.last_route(), k4_route(B), B)
     ms5 = cuda_ms(lambda: KERNELS["K5"](*fwd, **kw5), 10)
     bound4 = bound_of(B, bwd, (K, kf, rh, res2), plain4, bwd, kw4)
+    # the swarms' odd batch on the first B - 1 scenarios: the one-thread sweep
+    odd = B - 1
+    oargs = first(args, odd)
+    errs_o, bad = testing.check_iter(oargs, ic)
+    check_route("K4", riccati_sparse.last_route(), k4_route(odd), odd)
+    print(f"kernel vs plain (K4 + K5, the per-iteration path's state, bf16 payload, B={odd}, "
+          f"K4 by {k4_route(odd)}): {testing.describe(errs_o)}")
+    check(not bad, f"K4 + K5 vs plain (bf16 payload, B={odd}): {', '.join(bad)} out of tolerance")
+    ms4o = cuda_ms(lambda: KERNELS["K4"](*oargs[:22], **kw4), 10)
     k4 = entry(
         "riccati_backward_glue", "riccati_iter.cu", "riccati_sparse.py:728",
         per["launches"]["K4"], errs["max_abs_K4"], ms4, cuda_ms(lambda: plain4(*bwd, **kw4), 1),
-        bound4, B, **team_fields(None, B, ms4, bound4, sweep_geometry("glue", B, True)),
+        bound4, B, route_taken=k4_route(B),
+        **team_fields(None, B, ms4, bound4, sweep_geometry("glue", B, True)),
+        odd_B=odd, odd_B_route=k4_route(odd), odd_B_ms=ms4o,
+        odd_B_max_abs_err=errs_o["max_abs_K4"],
     )
     k5 = entry(
         "riccati_forward_glue", "riccati_iter.cu", "riccati_sparse.py:787",
@@ -844,11 +893,24 @@ def phase_kernels_packed(res, mlp):
     K, kf = plain8(*bwd)
     fwd = (args[6], args[7], args[8], K, kf, *fwd_tail)
     ms8 = cuda_ms(lambda: KERNELS["K8"](*bwd), 10)
+    check_route("K8", riccati.last_route(), k8_route(B), B)
     bound8 = bound_of(B, bwd, (K, kf), plain8, bwd, {})
+    # an odd batch on the first B - 1 scenarios: element copies
+    odd = B - 1
+    oargs = first(args, odd)
+    errs_o, bad = testing.check_packed(oargs)
+    check_route("K8", riccati.last_route(), k8_route(odd), odd)
+    print(f"kernel vs plain (K8 + K9, the clipped-LQR start, f32, B={odd}, K8 by "
+          f"{k8_route(odd)}): {testing.describe(errs_o)}")
+    check(not bad, f"K8 + K9 vs plain (B={odd}): {', '.join(bad)} out of tolerance")
+    ms8o = cuda_ms(lambda: KERNELS["K8"](*oargs[:9]), 10)
     k8 = entry(
         "riccati_backward_packed", "riccati_packed.cu", "riccati.py:318",
         res["launches"]["K8"], errs["max_abs_K8"], ms8, cuda_ms(lambda: plain8(*bwd), 1),
-        bound8, B, **team_fields(None, B, ms8, bound8, sweep_geometry("packed", B, False)),
+        bound8, B, route_taken=k8_route(B),
+        **team_fields(None, B, ms8, bound8, sweep_geometry("packed", B, False)),
+        odd_B=odd, odd_B_route=k8_route(odd), odd_B_ms=ms8o,
+        odd_B_max_abs_err=errs_o["max_abs_K8"],
     )
     k9 = entry(
         "riccati_forward_packed", "riccati_packed.cu", "riccati.py:359",
@@ -915,6 +977,8 @@ def phase_mission(name, extra=(), n_ticks=None):
                  f"{result['pos_rmse_followers']}; leader RMSE spread across "
                  f"{lead.numel()} groups {spread:.3g} m")
         check(spread < 1e-3, f"mission {name}: leader RMSE spread {spread} m across groups")
+    if not args.cpu and launches["K4"]:
+        line += f"; K4 by {riccati_sparse.last_route()}"
     print(line)
     if args.cpu:
         return result

@@ -13,25 +13,26 @@
 // forward kernel about 14k against about 15.7 KB (payload, gains and state
 // in, every direction out).
 //
-// Backward design (K4): a team of TEAM lanes a scenario (4; NDP_TEAM builds
-// 8 or 16), S scenarios a block, and only the current stage's inputs and the
-// sweep's working set on the SM, as K8 (riccati_packed.cu) streams them: a
-// producer warp loads stage k-1's rows into a landing buffer (one tensor
-// copy a field, its f32 rows and the curvature payload in the jac dtype)
-// while the teams compute stage k, and stores stage k+1's gains, kf and
-// defects from one of two output buffers; the compute threads never touch
-// global memory. Where the rows cannot be tensor-copied (B not a multiple
-// of 8, or a tensor not on 16 bytes) the launch runs the one-thread sweep
-// (`ndp::backward_sweep`, `riccati_backward_thread_kernel`) instead, which
-// measured faster there than a producer warp copying element by element
-// (PERF.md). Each team moves its scenario's column into its stage buffer
-// (`unpack`) and runs `stage_sweep`: the stage's box-row terms and defect
-// rows when it arrives (A), then `ndp_team.cuh`'s `team_stage` phases B, C
-// and E over P, p and the work area (W_*, 352 floats) in shared memory.
-// Node k+1's iterate, which the defects need, is kept from the stage before
-// (ZX1). Every output element is computed by one lane with the one-thread
-// expression and order, res2 is summed over k = N-1..0 as the plain version
-// sums it, and a NaN stays in its slot.
+// Backward design (K4): a team of TEAM = 4 lanes a scenario, S scenarios a
+// block, and only the current stage's inputs and the sweep's working set on
+// the SM, as K8 (riccati_packed.cu) streams them: a producer warp loads stage
+// k-1's rows into a landing buffer (one tensor copy a field, its f32 rows and
+// the curvature payload in the jac dtype) while the teams compute stage k, and
+// stores stage k+1's gains, kf and defects from one of two output buffers; the
+// compute threads never touch global memory. Where the rows cannot be
+// tensor-copied (B not a multiple of 8, or a tensor not on 16 bytes) the
+// launch runs the one-thread sweep (`ndp::backward_sweep`,
+// `riccati_backward_thread_kernel`) instead, the one other route
+// (`riccati_backward_route`): it measured faster there than the teams fed
+// element by element, by every thread or by a producer warp (PERF.md). Each
+// team moves its scenario's column into its stage buffer (`unpack`) and runs
+// `stage_sweep`: the stage's box-row terms and defect rows when it arrives
+// (A), then `ndp_team.cuh`'s `team_stage` phases B, C and E over P, p and the
+// work area (W_*, 352 floats) in shared memory. Node k+1's iterate, which the
+// defects need, is kept from the stage before (ZX1). Every output element is
+// computed by one lane with the one-thread expression and order, res2 is
+// summed over k = N-1..0 as the plain version sums it, and a NaN stays in its
+// slot.
 //
 // Forward design (K5): one thread per scenario (128 threads a block, masked
 // at b < B), dx in registers over k = 0..N-1 and the terminal node; it does
@@ -40,11 +41,9 @@
 //
 // Bound to PyTorch through ctypes: plain C entry points, no PyTorch headers.
 
-#ifndef NDP_TEAM  // lanes a scenario of K4 (ndp_team.cuh)
-#define NDP_TEAM 4
-#endif
-#ifndef NDP_K4_THREADS  // compute threads a block, at most
-#define NDP_K4_THREADS (NDP_TEAM >= 16 ? 512 : NDP_TEAM == 8 ? 512 : 320)
+#define NDP_TEAM 4  // lanes a scenario of K4 (ndp_team.cuh)
+#ifndef NDP_K4_THREADS  // compute threads a block, at most (the host tests build fewer)
+#define NDP_K4_THREADS 320
 #endif
 
 #include "ndp_team.cuh"
@@ -529,6 +528,22 @@ __global__ void __launch_bounds__(128)
   p.comp4[3 * B + b] = acc.c4;
 }
 
+// The route of the backward kernel's last launch: 1 tensor copies (the
+// teams), 0 the one-thread sweep, -1 none yet.
+static int last_route = -1;
+
+// Whether a launch takes the tensor copies: their box rows must be 16-byte
+// aligned (B and S multiples of VEC, every tensor on 16 bytes).
+static bool tma_route(const ndp::IterPtrs& p, long long B, int S) {
+  using namespace ndp::k4;
+  bool ok = B % VEC == 0 && S % VEC == 0;
+  for (int f = 0; f < F_IN; ++f)
+    ok = ok && reinterpret_cast<unsigned long long>(field_ptr(p, f)) % 16 == 0;
+  for (int q = 0; q < O_N; ++q)
+    ok = ok && reinterpret_cast<unsigned long long>(out_ptr(p, q)) % 16 == 0;
+  return ok;
+}
+
 template <typename JT>
 static int backward_launch_t(const ndp::StepConsts* c, const ndp::IterPtrs* p, long long B,
                              cudaStream_t s) {
@@ -540,25 +555,25 @@ static int backward_launch_t(const ndp::StepConsts* c, const ndp::IterPtrs* p, l
   const cudaError_t e = cudaFuncSetAttribute(
       riccati_backward_kernel<JT>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (e != cudaSuccess) return (int)e;
-  // tensor copies need 16-byte aligned rows (B and S multiples of VEC, every
-  // tensor on 16 bytes) and a map of each tensor as (rows, B) in boxes of
-  // (a stage's rows, S); else the one-thread sweep runs
+  // the tensor copies take a map of each tensor as (rows, B) in boxes of (a
+  // stage's rows, S); a map that cannot be made where the rows are aligned is
+  // an error, not a reason to run the one-thread sweep
   Maps maps{};
-  bool tma = B % VEC == 0 && g.S % VEC == 0;
-  for (int f = 0; f < F_IN && tma; ++f) {
-    const void* t = field_ptr(*p, f);
-    const long long rows = f == F_MU ? 1 : (long long)(field_node(f) ? N + 1 : N) * field_rows(f);
-    tma = reinterpret_cast<unsigned long long>(t) % 16 == 0 &&
-          tensor_map(&maps.in[f], t, field_jac(f) ? (int)sizeof(JT) : 4, B, rows, g.S,
-                     field_rows(f)) == 0;
-  }
-  for (int q = 0; q < O_N && tma; ++q) {
-    const float* t = out_ptr(*p, q);
-    tma = reinterpret_cast<unsigned long long>(t) % 16 == 0 &&
-          tensor_map(&maps.out[q], t, 4, B, q == O_R2 ? 1 : (long long)N * out_rows(q), g.S,
-                     out_rows(q)) == 0;
-  }
+  const bool tma = tma_route(*p, B, g.S);
+  last_route = tma ? 1 : 0;
   if (tma) {
+    for (int f = 0; f < F_IN; ++f) {
+      const long long rows =
+          f == F_MU ? 1 : (long long)(field_node(f) ? N + 1 : N) * field_rows(f);
+      if (const int err = tensor_map(&maps.in[f], field_ptr(*p, f),
+                                     field_jac(f) ? (int)sizeof(JT) : 4, B, rows, g.S,
+                                     field_rows(f)))
+        return err;
+    }
+    for (int q = 0; q < O_N; ++q)
+      if (const int err = tensor_map(&maps.out[q], out_ptr(*p, q), 4, B,
+                                     q == O_R2 ? 1 : (long long)N * out_rows(q), g.S, out_rows(q)))
+        return err;
     NDP_LAUNCH(riccati_backward_kernel<JT>, (unsigned)g.blocks, g.threads, g.smem, s, *p, *c,
                maps, g.S);
   } else {
@@ -595,6 +610,9 @@ int riccati_backward_launch(int jac_bf16, const ndp::StepConsts* c, const ndp::I
   return jac_bf16 ? backward_launch_t<__nv_bfloat16>(c, p, B, s)
                   : backward_launch_t<float>(c, p, B, s);
 }
+
+// The route the backward kernel's last launch took (`last_route`).
+int riccati_backward_route() { return last_route; }
 
 #ifdef NDP_TEAM_CLOCKS
 // The backward kernel's phase cycle counts since the last call

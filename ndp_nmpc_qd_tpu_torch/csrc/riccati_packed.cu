@@ -17,9 +17,9 @@
 // kernel reads A, B, r, K, k and the clip bounds and writes the rollout,
 // about 17 KB a scenario.
 //
-// Backward design (K8): a team of TEAM lanes a scenario (4; NDP_K8_TEAM
-// builds 1, 2, 8 or 16), S scenarios a block, and the sweep's whole working
-// set on the SM: nothing but the inputs and the gains touches global memory.
+// Backward design (K8): a team of TEAM = 4 lanes a scenario, S scenarios a
+// block, and the sweep's whole working set on the SM: nothing but the
+// inputs and the gains touches global memory.
 // The TPU grid's sequential stage axis, over which the Pallas kernel carried
 // P in VMEM scratch, is a loop over k = N-1..0 inside the block. The stage
 // inputs stream through the block one stage ahead: a producer warp (after
@@ -27,9 +27,13 @@
 // teams compute stage k, each field one box [rows][S] of its (stage, d, B)
 // tensor viewed as (rows, B), by one tensor copy (TMA, cp.async.bulk.tensor,
 // completion on an mbarrier) from the producer's lane 0, and stores stage
-// k+1's gains the same way from one of two output buffers (where B is not a
-// multiple of 4 every thread copies element by element instead). The
-// compute threads never issue a global access: measured, that is what kept
+// k+1's gains the same way from one of two output buffers. Where a box row
+// cannot be tensor-copied (B not a multiple of 4, or a tensor not on 16
+// bytes) every thread copies element by element instead, the one other
+// route (`riccati_packed_backward_route`): measured at B=65535, 2.14 ms
+// against 4.46 for a one-thread sweep with P in a global scratch (PERF.md),
+// so K8 keeps it where K4 runs its one-thread sweep. The compute threads of
+// the tensor copies' route never issue a global access: measured, that is what kept
 // every earlier staging (per-thread cp.async of 4 or 16 bytes, a warp of
 // per-row bulk copies) at 1.8-3.1 ms. Each team moves its scenario's column
 // of the landing buffer into its slot (`unpack`), which holds the rows of A,
@@ -58,8 +62,8 @@
 // lane meets every barrier.
 //
 // Forward design (K9): one thread per scenario; dx and du in registers, each
-// stage's A, B, r, K and k read once, coalesced across the warp (batch
-// innermost).
+// stage's A, B, r, K and k read once through the read-only path, coalesced
+// across the warp (batch innermost).
 //
 // NaN: the clip is nmax then nmin (jnp.minimum(jnp.maximum(du, lo), hi)
 // propagates NaN; fminf/fmaxf would drop it and let a poisoned solve look
@@ -69,11 +73,8 @@
 
 #include "ndp.cuh"
 
-#ifndef NDP_K8_TEAM
-#define NDP_K8_TEAM 4
-#endif
-#ifndef NDP_K8_THREADS  // compute threads a block, at most
-#define NDP_K8_THREADS (NDP_K8_TEAM >= 16 ? 768 : 64 * NDP_K8_TEAM)
+#ifndef NDP_K8_THREADS  // compute threads a block, at most (the host tests build fewer)
+#define NDP_K8_THREADS 256
 #endif
 
 namespace ndp {
@@ -101,9 +102,7 @@ struct PackedPtrs {
 
 namespace k8 {
 
-constexpr int TEAM = NDP_K8_TEAM;  // lanes a scenario
-static_assert(TEAM == 1 || TEAM == 2 || TEAM == 4 || TEAM == 8 || TEAM == 16,
-              "a team is a power of two, at most half a warp");
+constexpr int TEAM = 4;  // lanes a scenario
 constexpr int MAX_THREADS = NDP_K8_THREADS;  // compute threads a block (and a producer warp)
 constexpr int SMEM_MAX = 232448;             // dynamic shared memory a block may take on sm_90
 constexpr int NCOL = NX + NU + 1;            // columns of PABr_T: PA's, PB's, Prp
@@ -285,10 +284,20 @@ __device__ __forceinline__ void unpack(const char* smem, const Layout& L, int S,
 // Barrier of a scenario's lanes (TEAM divides 32: a team never straddles a
 // warp).
 __device__ __forceinline__ void team_sync() {
-  if (TEAM > 1) {
-    const int lane = threadIdx.x & 31;
-    __syncwarp(((1u << (TEAM & 31)) - 1u) << (lane & ~(TEAM - 1)));
-  }
+  const int lane = threadIdx.x & 31;
+  __syncwarp(((1u << TEAM) - 1u) << (lane & ~(TEAM - 1)));
+}
+
+// Whether a launch takes the tensor copies: their box rows must be 16-byte
+// aligned (B and S multiples of VEC, every tensor on 16 bytes). Otherwise
+// every thread copies element by element.
+inline bool tma_route(const PackedPtrs& p, long long B, int S) {
+  const float* const t[F_IN + 2] = {p.a, p.b, p.r, p.hxx, p.huu, p.gx, p.gu, p.sig_x, p.sig_u,
+                                    p.K, p.kf};
+  bool ok = B % VEC == 0 && S % VEC == 0;
+  for (int i = 0; i < F_IN + 2; ++i)
+    ok = ok && reinterpret_cast<unsigned long long>(t[i]) % 16 == 0;
+  return ok;
 }
 
 }  // namespace k8
@@ -546,33 +555,44 @@ __global__ void __launch_bounds__(128)
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int N = c.n_stages;
-  const View<float> av = at(p.a, NX * NX, B, b), bv = at(p.b, NX * NU, B, b);
-  const View<float> rv = at(p.r, NX, B, b), Kv = at(p.K, NU * NX, B, b);
-  const View<float> kv = at(p.kf, NU, B, b);
-  const View<float> lo = at(p.clip_lo, NU, B, b), hi = at(p.clip_hi, NU, B, b);
+  // every input through the read-only path (ld.global.nc): no store of dx
+  // or du can alias it, so a stage's loads need not wait for the stores
+  // before them
+  const View<const float> av = at<const float>(p.a, NX * NX, B, b);
+  const View<const float> bv = at<const float>(p.b, NX * NU, B, b);
+  const View<const float> rv = at<const float>(p.r, NX, B, b);
+  const View<const float> Kv = at<const float>(p.K, NU * NX, B, b);
+  const View<const float> kv = at<const float>(p.kf, NU, B, b);
+  const View<const float> lo = at<const float>(p.clip_lo, NU, B, b);
+  const View<const float> hi = at<const float>(p.clip_hi, NU, B, b);
   const View<float> dxo = at(p.dx, NX, B, b), duo = at(p.du, NU, B, b);
+  auto in = [](const View<const float>& v, int k, int i) { return __ldg(&v(k, i)); };
   float dx[NX], du[NU], nxt[NX];
-  for (int i = 0; i < NX; ++i) dx[i] = p.dx0[i * B + b];
+  for (int i = 0; i < NX; ++i) dx[i] = __ldg(p.dx0 + i * B + b);
   for (int k = 0; k < N; ++k) {
     for (int l = 0; l < NU; ++l) {
-      float s = Kv(k, l * NX) * dx[0];
-      for (int j = 1; j < NX; ++j) s = s + Kv(k, l * NX + j) * dx[j];
-      du[l] = s + kv(k, l);
-      if (lo.p) du[l] = nmin(nmax(du[l], lo(k, l)), hi(k, l));
+      float s = in(Kv, k, l * NX) * dx[0];
+      for (int j = 1; j < NX; ++j) s = s + in(Kv, k, l * NX + j) * dx[j];
+      du[l] = s + in(kv, k, l);
+      if (lo.p) du[l] = nmin(nmax(du[l], in(lo, k, l)), in(hi, k, l));
     }
     for (int i = 0; i < NX; ++i) dxo(k, i) = dx[i];
     for (int l = 0; l < NU; ++l) duo(k, l) = du[l];
     for (int i = 0; i < NX; ++i) {
-      float s = av(k, i * NX) * dx[0];
-      for (int j = 1; j < NX; ++j) s = s + av(k, i * NX + j) * dx[j];
-      float t = bv(k, i * NU) * du[0];
-      for (int l = 1; l < NU; ++l) t = t + bv(k, i * NU + l) * du[l];
-      nxt[i] = s + t + rv(k, i);
+      float s = in(av, k, i * NX) * dx[0];
+      for (int j = 1; j < NX; ++j) s = s + in(av, k, i * NX + j) * dx[j];
+      float t = in(bv, k, i * NU) * du[0];
+      for (int l = 1; l < NU; ++l) t = t + in(bv, k, i * NU + l) * du[l];
+      nxt[i] = s + t + in(rv, k, i);
     }
     for (int i = 0; i < NX; ++i) dx[i] = nxt[i];
   }
   for (int i = 0; i < NX; ++i) dxo(N, i) = dx[i];
 }
+
+// The route of the backward kernel's last launch: 1 tensor copies, 0
+// element-by-element copies, -1 none yet.
+static int last_route = -1;
 
 extern "C" {
 
@@ -606,25 +626,31 @@ int riccati_packed_backward_launch(int jac_bf16, const ndp::StepConsts* c,
   const cudaError_t e = cudaFuncSetAttribute(
       riccati_packed_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (e != cudaSuccess) return (int)e;
-  // tensor copies need 16-byte aligned rows (B and S multiples of VEC, every
-  // tensor on 16 bytes) and a map of each tensor as (rows, B) in boxes of
-  // (a stage's rows, S)
+  // the tensor copies take a map of each tensor as (rows, B) in boxes of (a
+  // stage's rows, S); a map that cannot be made where the rows are aligned is
+  // an error, not a reason to copy element by element
   Maps maps{};
-  const float* const in[F_IN] = {p->a, p->b, p->r, p->hxx, p->huu, p->gx, p->gu, p->sig_x, p->sig_u};
-  const int nodes[F_IN] = {N, N, N, N + 1, N, N + 1, N, N + 1, N};
-  bool tma = B % VEC == 0 && g.S % VEC == 0;
-  for (int f = 0; f < F_IN && tma; ++f)
-    tma = reinterpret_cast<unsigned long long>(in[f]) % 16 == 0 &&
-          ndp::tensor_map(&maps.in[f], in[f], 4, B, (long long)nodes[f] * field_rows(f), g.S,
-                          field_rows(f)) == 0;
-  tma = tma && reinterpret_cast<unsigned long long>(p->K) % 16 == 0 &&
-        reinterpret_cast<unsigned long long>(p->kf) % 16 == 0 &&
-        ndp::tensor_map(&maps.out[0], p->K, 4, B, (long long)N * NU * NX, g.S, NU * NX) == 0 &&
-        ndp::tensor_map(&maps.out[1], p->kf, 4, B, (long long)N * NU, g.S, NU) == 0;
+  const bool tma = tma_route(*p, B, g.S);
+  if (tma) {
+    const float* const in[F_IN] = {p->a,  p->b,  p->r,     p->hxx,  p->huu,
+                                   p->gx, p->gu, p->sig_x, p->sig_u};
+    const int nodes[F_IN] = {N, N, N, N + 1, N, N + 1, N, N + 1, N};
+    int err = 0;
+    for (int f = 0; f < F_IN && !err; ++f)
+      err = tensor_map(&maps.in[f], in[f], 4, B, (long long)nodes[f] * field_rows(f), g.S,
+                       field_rows(f));
+    if (!err) err = tensor_map(&maps.out[0], p->K, 4, B, (long long)N * NU * NX, g.S, NU * NX);
+    if (!err) err = tensor_map(&maps.out[1], p->kf, 4, B, (long long)N * NU, g.S, NU);
+    if (err) return err;
+  }
+  last_route = tma ? 1 : 0;
   NDP_LAUNCH(riccati_packed_backward_kernel, (unsigned)g.blocks, g.threads, g.smem,
              static_cast<cudaStream_t>(stream), *p, *c, maps, B, g.S, tma);
   return (int)cudaGetLastError();
 }
+
+// The route the backward kernel's last launch took (`last_route`).
+int riccati_packed_backward_route() { return last_route; }
 
 #ifdef NDP_TEAM_CLOCKS
 // The backward kernel's phase cycle counts since the last call

@@ -140,6 +140,11 @@ inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
 inline float __shfl_xor_sync(unsigned, float v, int mask, int = 32) {
   return ndp_emulate::exchange(v, ndp_emulate::thread_idx.x ^ unsigned(mask));
 }
+// A load through the read-only path: a plain load.
+template <typename T>
+inline T __ldg(const T* p) {
+  return *p;
+}
 
 inline cudaError_t cudaGetLastError() {
   const cudaError_t e = ndp_emulate::last_error;

@@ -209,14 +209,14 @@ def c_geometry(fn, B: int, n_stages: int, jac_bf16: bool) -> dict:
 # ---- the streamed sweeps' launch geometry: K8 (csrc/riccati_packed.cu,
 # ndp::k8) and K4 (csrc/riccati_iter.cu, ndp::k4) ----
 
-# Lanes a scenario, the compute threads a block at most (NDP_K8_TEAM /
-# NDP_K8_THREADS, NDP_TEAM / NDP_K4_THREADS as built by default) and the
-# scenarios 16 bytes of a row hold, of each. A block's shared memory is its
-# S slots (one stage buffer and the sweep's working set each, whatever the
-# horizon), then a landing buffer of one stage's input rows and two output
-# buffers of a stage's output rows, each field a box [rows][S] on 128 bytes,
-# and an mbarrier; its threads are the compute threads in whole warps and
-# one producer warp.
+# Lanes a scenario (ndp::k8::TEAM, NDP_TEAM as riccati_iter.cu sets it), the
+# compute threads a block at most (NDP_K8_THREADS / NDP_K4_THREADS as built by
+# default) and the scenarios 16 bytes of a row hold, of each. A block's shared
+# memory is its S slots (one stage buffer and the sweep's working set each,
+# whatever the horizon), then a landing buffer of one stage's input rows and
+# two output buffers of a stage's output rows, each field a box [rows][S] on
+# 128 bytes, and an mbarrier; its threads are the compute threads in whole
+# warps and one producer warp.
 SWEEP_KERNELS = {
     "packed": dict(team=4, max_threads=256, vec=4),
     "glue": dict(team=4, max_threads=320, vec=8),

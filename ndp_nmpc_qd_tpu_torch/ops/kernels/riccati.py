@@ -169,6 +169,17 @@ def geometry(B: int, lib=None) -> dict:
     return _cuda.c_geometry(_lib(lib).riccati_packed_backward_geometry, B, 0, False)
 
 
+ROUTES = ("element copies", "tensor copies")  # K8's staging, by its C route code
+
+
+def last_route(lib=None) -> str:
+    """How K8's last launch from `lib` (None: the default build) moved its
+    rows: "tensor copies" (B a multiple of 4, every tensor on 16 bytes) or
+    "element copies" (every thread, element by element)."""
+    code = _lib(lib).riccati_packed_backward_route()
+    return ROUTES[code] if code >= 0 else "none"
+
+
 def _launch(fn_name, tensors: dict, a, lib=None):
     """Check every tensor (f32, contiguous, on a's card) and launch from
     `lib` (a build of csrc/riccati_packed.cu; None: the default build)."""

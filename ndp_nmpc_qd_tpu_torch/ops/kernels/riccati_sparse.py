@@ -505,6 +505,17 @@ def geometry(B: int, jac_bf16: bool, lib=None) -> dict:
     return _cuda.c_geometry(_lib(lib).riccati_backward_geometry, B, 0, jac_bf16)
 
 
+ROUTES = ("one-thread sweep", "tensor copies")  # K4's kernel, by its C route code
+
+
+def last_route(lib=None) -> str:
+    """Which kernel K4's last launch from `lib` (None: the default build)
+    ran: "tensor copies" (the teams fed by tensor copies: B a multiple of 8,
+    every tensor on 16 bytes) or "one-thread sweep"."""
+    code = _lib(lib).riccati_backward_route()
+    return ROUTES[code] if code >= 0 else "none"
+
+
 def _state_shapes(N, B):
     return dict(
         zx=(N + 1, NX, B), zu=(N, NU, B), su_lo=(N, NU, B), su_up=(N, NU, B),

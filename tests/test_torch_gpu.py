@@ -255,6 +255,7 @@ def test_streamed_dense_sweep_k8_matches_plain(call, B):
     torch.cuda.synchronize()
     assert not bad, f"K8/K9 ({call}, B={B}): {bad} out of tolerance: {testing.describe(errs)}"
     assert riccati.riccati_backward_packed.launches == before + 1
+    assert riccati.last_route() == ("tensor copies" if B % 4 == 0 else "element copies")
 
 
 @pytest.mark.gpu
@@ -276,6 +277,7 @@ def test_streamed_glue_sweep_k4_matches_plain(jac_bf16, B):
     torch.cuda.synchronize()
     assert not bad, f"K4/K5 (B={B}): {bad} out of tolerance: {testing.describe(errs)}"
     assert riccati_sparse.riccati_backward_glue.launches == before + 1
+    assert riccati_sparse.last_route() == ("tensor copies" if B % 8 == 0 else "one-thread sweep")
 
 
 @pytest.mark.gpu

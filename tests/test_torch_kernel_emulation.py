@@ -1,13 +1,14 @@
 """The streamed sweeps K8 and K4 (csrc/riccati_packed.cu, csrc/riccati_iter.cu)
-built as host C++ and run on the CPU (`ndp_nmpc_qd_tpu_torch.emulate`: each
-CUDA thread a host thread, the block's and the lanes' barriers real
-barriers, tensor copies as plain copies), held against their plain versions.
+and the dense rollout K9 built as host C++ and run on the CPU
+(`ndp_nmpc_qd_tpu_torch.emulate`: each CUDA thread a host thread, the
+block's and the lanes' barriers real barriers, tensor copies as plain
+copies), held against their plain versions.
 
 The builds cap the compute threads a block (NDP_K8_THREADS=64,
 NDP_K4_THREADS=64: at most 16 scenarios a block), so B = 23, 24, 27 run two
 blocks, the last ragged. B = 24 takes the tensor copies; at B = 1, 23 and
 27 (not a multiple of the rows' 16 bytes) K8 copies element by element and
-K4 runs its one-thread sweep.
+K4 runs its one-thread sweep; each launch's route is checked.
 One scenario's input is NaN (B > 1): it must stay in that scenario. The
 kernel and the plain version sum in the same order, so they are held within
 1e-6 (`testing.err_of`'s measures; the plain dense sweep contracts with
@@ -75,8 +76,32 @@ def test_dense_sweep_k8_emulated_matches_plain(cxx, call, B):
                                K=K.data_ptr(), kf=kf.data_ptr())
     emulate.launch(lib.riccati_packed_backward_launch, False,
                    _cuda.step_consts(N, dict(h=0.0)), ptrs, B)
+    assert riccati.last_route(lib) == ("tensor copies" if B % 4 == 0 else "element copies")
     K_ref, kf_ref = riccati.riccati_backward_packed_plain(*bwd)
     held({"K": ("primal", K, K_ref), "kf": ("primal", kf, kf_ref)}, nan_b)
+
+
+@pytest.mark.parametrize("call", ["lqr_start", "newton"])
+def test_dense_rollout_k9_emulated_matches_plain(cxx, call):
+    """K9 (the dense rollout, one thread a scenario, its inputs read through
+    the read-only path) on the plain gains, with the clip at the clipped-LQR
+    start and without it in a Newton iteration; B=23 leaves a ragged block."""
+    B = 23
+    lib = riccati._lib(emulate.load("riccati_packed", K8_BUILD))
+    p, dx0 = testing.dense_payload(CFG, B, CPU, seed=5)
+    args = testing.packed_args(p, dx0, call)
+    K, kf = riccati.riccati_backward_packed_plain(*args[:9])
+    a, b, r, x0, lo, hi = args[6], args[7], args[8], args[9], args[10], args[11]
+    fwd = [None if t is None else t.contiguous() for t in (a, b, r, K, kf, x0, lo, hi)]
+    dx = torch.empty(N + 1, 10, B)
+    du = torch.empty(N, 4, B)
+    names = ("a", "b", "r", "K", "kf", "dx0", "clip_lo", "clip_hi")
+    ptrs = riccati._PackedPtrs(**{n: None if t is None else t.data_ptr()
+                                  for n, t in zip(names, fwd)}, dx=dx.data_ptr(), du=du.data_ptr())
+    emulate.launch(lib.riccati_packed_forward_launch, False,
+                   _cuda.step_consts(N, dict(h=0.0)), ptrs, B)
+    dx_ref, du_ref = riccati.riccati_forward_packed_plain(*fwd)
+    held({"dx": ("primal", dx, dx_ref), "du": ("primal", du, du_ref)})
 
 
 @pytest.mark.parametrize("B", [1, 23, 24, 27])
@@ -99,6 +124,7 @@ def test_glue_sweep_k4_emulated_matches_plain(cxx, jac_bf16, B):
                         **{n: t.data_ptr() for n, t in zip(rs._STATE, args[7:17])},
                         mu=args[21].data_ptr(), **{n: t.data_ptr() for n, t in out.items()})
     emulate.launch(lib.riccati_backward_launch, jac_bf16, _cuda.step_consts(N, kw), ptrs, B)
+    assert rs.last_route(lib) == ("tensor copies" if B % 8 == 0 else "one-thread sweep")
     ref = rs.riccati_backward_glue_plain(*args, **kw)
     held({n: (kind, out[o], r) for (n, kind, o), r in zip(
         (("K", "primal", "K"), ("kf", "primal", "kf"), ("rhat", "primal", "rh"),
