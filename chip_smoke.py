@@ -8,11 +8,11 @@ Phases, one line each; any failure exits non-zero before the last line:
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives.
 2. build: nvcc of every kernel source (one process each, all started
    together), with ptxas' registers, stack and spills per kernel, and for
-   K1, K2 (a team of lanes a scenario, the whole horizon in shared memory)
-   and K8, K4 (a team of lanes a scenario, one stage at a time in shared
-   memory) their dynamic shared memory a block, their launch geometry held
-   against its Python mirror (`_cuda.team_geometry`,
-   `_cuda.sweep_geometry`).
+   K1, K2 (a team of lanes a scenario, the whole horizon in shared memory),
+   K8, K4, K6 (a team of lanes a scenario, one stage at a time in shared
+   memory) and K3 (a warp a tangent column, a block a stage of 32
+   scenarios) their launch geometry held against its Python mirror
+   (`_cuda.team_geometry`, `_cuda.sweep_geometry`, `_cuda.lin_geometry`).
 3. kernel vs plain, B=4096, f32 and bf16 payloads, at the tolerances stated
    in `check_pair` and `ndp_nmpc_qd_tpu_torch/testing.py`:
    a. K1, the fused control step, 3 chained ticks (cold, then warm), every
@@ -26,13 +26,14 @@ Phases, one line each; any failure exits non-zero before the last line:
    c. K6 and K7 (one Newton sweep, `riccati_sweep_sparse`) in both ways the
       IPM calls them: at the zero iterate with the clip and the hold
       rollout (the clipped-LQR start), and at a jittered iterate with
-      sig/corr from `ipm_corr_terms`, no clip, no hold (the unfused glue).
+      sig/corr from `ipm_corr_terms`, no clip, no hold (the unfused glue);
+      at B=4096 and at 4095, where K6 runs its one-thread sweep.
    d. K8 and K9 (the dense sweep of the legacy packed path,
       `riccati_sweep_packed`, f32) in both ways `ipm_packed` calls them:
       the clipped-LQR start (zero sig, clip) and a Newton iteration
       (nonzero sig, the defects rhat, no clip); at B=4096 (tensor copies)
       and 4095 (element copies).
-   Each K4 and K8 launch's route is checked against its batch.
+   Each K4, K6 and K8 launch's route is checked against its batch.
 4. main path: bf16 downwash forecast + `reset` + `update` of the deployed
    controller (warm start, 3 QP iterations, bf16 Jacobians, one K1 launch a
    tick) at B=65536: health, mean step time over 30 queued ticks (CUDA
@@ -53,14 +54,15 @@ Phases, one line each; any failure exits non-zero before the last line:
 7. closed loop: 150-tick hover recovery at B=65536 through an RK4 plant that
    feels the same node-0 forecast force the controller was given.
 8. kernels: each kernel against its plain version once more at B=65536 on
-   the state its path left (the deployed bf16 payload), K4 and K8 also on
-   its first 65535 scenarios (the swarms' batch: K4's one-thread sweep,
-   K8's element copies), timed there too; then one JSON line,
-   each hand-written kernel with its launches on its path, time, bound,
-   plain-version time and error against it (K1, K2, K4 and K8 also with
-   their lanes a scenario, scenarios, threads and shared memory a block,
-   and bound share; K4 and K8 with the route each batch took and their time
-   and error at the odd batch).
+   the state its path left (the deployed bf16 payload), K3, K4, K6 and K8
+   also on its first 65535 scenarios (the swarms' batch: K4's and K6's
+   one-thread sweeps, K8's element copies), timed there too; then one JSON
+   line, each hand-written kernel with its launches on its path, time,
+   bound, plain-version time and error against it (K1, K2, K3, K4, K6 and
+   K8 also with their lanes a scenario, scenarios, threads and shared
+   memory a block, and bound share; K3 with its ptxas registers and stack;
+   K3, K4, K6 and K8 with their time and error at the odd batch, K4, K6 and
+   K8 with the route each batch took).
 9. missions through the port's CLI (`cli.run_mission`), 200 hold ticks and
    16 s of the figure-eight (1000 ticks), recovery on:
    a. `three_qd_ndp` (3 drones: the scan controller cold@12, as the JAX
@@ -229,15 +231,46 @@ def ptxas_summary(log):
     return " | ".join(out)
 
 
+def ptxas_fields(log):
+    """Per kernel instantiation of a build: {name: {registers, stack_bytes,
+    spill_store_bytes}}, from nvcc's `-Xptxas -v` output."""
+    out = {}
+    for part in ptxas_summary(log).split(" | "):
+        m = re.match(r"(\S+) (\S+) registers, (?:(\d+) bytes stack frame, (\d+) bytes spill "
+                     r"stores)?", part)
+        if m:
+            out[m.group(1)] = dict(
+                registers=int(m.group(2)) if m.group(2).isdigit() else None,
+                stack_bytes=int(m.group(3)) if m.group(3) else None,
+                spill_store_bytes=int(m.group(4)) if m.group(4) else None)
+    return out
+
+
 TEAM_KERNELS = {"step_whole": step_whole, "ipm_whole": ipm_whole}  # K1, K2
-SWEEP_KERNELS = {"riccati_packed": "packed", "riccati_iter": "glue"}  # K8, K4
+SWEEP_KERNELS = {"riccati_packed": "packed", "riccati_iter": "glue",
+                 "riccati_sweep": "given"}  # K8, K4, K6
 
 
 def sweep_geometry(kind, B, jac_bf16):
     """A streamed sweep's launch geometry as its library computes it."""
     if kind == "packed":
         return riccati.geometry(B)
+    if kind == "given":
+        return riccati_sparse.sweep_geometry(B, jac_bf16)
     return riccati_sparse.geometry(B, jac_bf16)
+
+
+def lin_smem():
+    """K3's launch geometry at B=65536, held against its Python mirror for
+    a few batch sizes."""
+    for B in (1, 301, 4096, 65535, 65536):
+        got, want = linearize.geometry(B, N), _cuda.lin_geometry(B, N)
+        check(got == want, f"linearize geometry at B={B}: C {got}, Python {want}")
+    g = linearize.geometry(65536, N)
+    return (f"geometry (B=65536) {g['scenarios_per_block']} scenarios x "
+            f"{g['threads_per_scenario']} lanes (a warp a tangent column) = "
+            f"{g['threads_per_block']} threads a block, {g['blocks']} blocks, "
+            f"{g['smem_bytes_per_block']} B of shared memory")
 
 
 def sweep_smem(kind):
@@ -282,7 +315,8 @@ def phase_build():
     wall = time.perf_counter() - t0
     for name, info in _build.build_info.items():
         smem = (f"; {team_smem(TEAM_KERNELS[name])}" if name in TEAM_KERNELS else
-                f"; {sweep_smem(SWEEP_KERNELS[name])}" if name in SWEEP_KERNELS else "")
+                f"; {sweep_smem(SWEEP_KERNELS[name])}" if name in SWEEP_KERNELS else
+                f"; {lin_smem()}" if name == "linearize" else "")
         print(f"build: {name}.cu in {info['seconds']:.1f} s (wall {wall:.1f} s, "
               f"cached={info['cached']}); ptxas: {ptxas_summary(info['log'])}{smem}")
 
@@ -385,10 +419,14 @@ def first(ts, B):
     return [None if t is None else t[..., :B].contiguous() for t in ts]
 
 
-# The staging route of a K4 / K8 launch at batch B: tensor copies where a
-# box row is 16-byte aligned (B a multiple of 8 / 4), else K4's one-thread
-# sweep and K8's element copies.
+# The staging route of a K4 / K6 / K8 launch at batch B: tensor copies where
+# a box row is 16-byte aligned (B a multiple of 8 / 8 / 4), else K4's and
+# K6's one-thread sweeps and K8's element copies.
 def k4_route(B):
+    return "tensor copies" if B % 8 == 0 else "one-thread sweep"
+
+
+def k6_route(B):
     return "tensor copies" if B % 8 == 0 else "one-thread sweep"
 
 
@@ -501,7 +539,9 @@ def phase_compare_two_kernel(B, dev, seed, mlp):
 
 def phase_compare_sweep(B, dev, seed):
     """K6 and K7 against their plain versions on the same inputs, f32 and
-    bf16 payloads, in both ways the IPM calls them (`testing.sweep_args`)."""
+    bf16 payloads, in both ways the IPM calls them (`testing.sweep_args`),
+    at B and B - 1 (K6's one-thread sweep), each K6 launch's route
+    checked."""
     ic = ipm_consts(CFG.ocp, num_iters=3)
     for jac_bf16 in (False, True):
         tag = "bf16" if jac_bf16 else "f32"
@@ -509,11 +549,15 @@ def phase_compare_sweep(B, dev, seed):
         qp = linearize.linearize_stage_data_plain(*testing.kernel_inputs(B, N, dev, seed), **lc)
         for call in ("lqr_start", "unfused_glue"):
             args, hold = testing.sweep_args(qp, ic, call)
-            errs, bad = testing.check_sweep(args, hold, ic)
-            print(f"kernel vs plain (K6 + K7, {call}, {tag} payload, B={B}): "
-                  f"{testing.describe(errs)}")
-            check(not bad, f"K6 + K7 vs plain ({call}, {tag} payload, B={B}): "
-                  f"{', '.join(bad)} out of tolerance")
+            for b in (B, B - 1):
+                errs, bad = testing.check_sweep(first(args, b), hold, ic)
+                route = riccati_sparse.last_sweep_route() if dev.type == "cuda" else "plain version"
+                print(f"kernel vs plain (K6 + K7, {call}, {tag} payload, B={b}, K6 by {route}): "
+                      f"{testing.describe(errs)}")
+                check(not bad, f"K6 + K7 vs plain ({call}, {tag} payload, B={b}): "
+                      f"{', '.join(bad)} out of tolerance")
+                if dev.type == "cuda":
+                    check_route("K6", route, k6_route(b), b)
 
 
 def phase_compare_packed(B, dev, seed):
@@ -679,8 +723,9 @@ def entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound, B,
 
 def team_fields(mod, B, ms, bound, g=None):
     """The kernels-line fields of a kernel with a team of lanes a scenario
-    (K1, K2; K8, K4 with their geometry `g`): its geometry at this run's B
-    with the deployed bf16 payload and its share of its bound."""
+    (K1, K2; K8, K4, K6 and K3 with their geometry `g`): its geometry at
+    this run's B with the deployed bf16 payload and its share of its
+    bound."""
     g = g or mod.geometry(B, N, True)
     return dict(threads_per_scenario=g["threads_per_scenario"],
                 scenarios_per_block=g["scenarios_per_block"],
@@ -756,13 +801,27 @@ def phase_kernels_two_kernel(two, per, mlp):
     st3, ins3 = path_inputs(per)
     errs, bad, qp3 = testing.check_linearize(ins3, lc)
     err3 = max(err3, checked("K3, the per-iteration path's state", errs, bad))
+    # the swarms' odd batch on the first B - 1 scenarios
+    odd = B - 1
+    ins3o = first(ins2, odd)
+    errs, bad, _ = testing.check_linearize(ins3o, lc)
+    print(f"kernel vs plain (K3, the two-kernel path's state, bf16 payload, B={odd}): "
+          f"{testing.describe(errs)}")
+    check(not bad, f"K3 vs plain (bf16 payload, B={odd}): {', '.join(bad)} out of tolerance")
+    err3o = errs["max_abs"]
     plain3 = linearize.linearize_stage_data_plain
+    ms3 = cuda_ms(lambda: KERNELS["K3"](*ins2, **lc), 10)
+    bound3 = bound_of(B, ins2, qp2, plain3, ins2, lc)
+    g3 = linearize.geometry(B, N)
     k3 = entry(
         "linearize_stage_data", "linearize.cu", "linearize.py:297", two["launches"]["K3"],
-        err3, cuda_ms(lambda: KERNELS["K3"](*ins2, **lc), 10),
-        cuda_ms(lambda: plain3(*ins2, **lc), 1), bound_of(B, ins2, qp2, plain3, ins2, lc), B,
+        err3, ms3, cuda_ms(lambda: plain3(*ins2, **lc), 1), bound3, B,
         launches_per_path={p: r["launches"]["K3"] for p, r in (("two-kernel", two),
                                                               ("per-iteration", per))},
+        **team_fields(None, B, ms3, bound3, g3),
+        ptxas=ptxas_fields(_build.build_info["linearize"]["log"]),
+        odd_B=odd, odd_B_ms=cuda_ms(lambda: KERNELS["K3"](*ins3o, **lc), 10),
+        odd_B_max_abs_err=err3o,
     )
 
     # K2 with the axpy folded, as the two-kernel path runs it
@@ -847,8 +906,9 @@ def phase_kernels_sweep(lqr, mlp):
         **lc)
     args, hold = testing.sweep_args(qp, ic, "lqr_start")
     errs, bad = testing.check_sweep(args, hold, ic)
+    check_route("K6", riccati_sparse.last_sweep_route(), k6_route(B), B)
     print(f"kernel vs plain (K6 + K7, the clipped-LQR start, bf16 payload, B={B}, the LQR "
-          f"path's state): {testing.describe(errs)}")
+          f"path's state, K6 by {k6_route(B)}): {testing.describe(errs)}")
     check(not bad, f"K6 + K7 vs plain (B={B}): {', '.join(bad)} out of tolerance")
     kw6 = {k: ic[k] for k in ("h", "diag6_stage", "diag6_term", "rdiag_stage")}
     kw7 = dict(h=ic["h"], with_hold=True)
@@ -857,10 +917,25 @@ def phase_kernels_sweep(lqr, mlp):
     plain7 = riccati_sparse.riccati_sweep_forward_plain
     K, kf, rh = plain6(*bwd, **kw6)
     fwd = (args[3], args[4], args[5], rh, K, kf, args[13], args[14], args[15])
+    ms6 = cuda_ms(lambda: KERNELS["K6"](*bwd, **kw6), 10)
+    check_route("K6", riccati_sparse.last_sweep_route(), k6_route(B), B)
+    bound6 = bound_of(B, bwd, (K, kf, rh), plain6, bwd, kw6)
+    # the swarms' odd batch on the first B - 1 scenarios: the one-thread sweep
+    odd = B - 1
+    oargs = first(args, odd)
+    errs_o, bad = testing.check_sweep(oargs, hold, ic)
+    check_route("K6", riccati_sparse.last_sweep_route(), k6_route(odd), odd)
+    print(f"kernel vs plain (K6 + K7, the clipped-LQR start, bf16 payload, B={odd}, K6 by "
+          f"{k6_route(odd)}): {testing.describe(errs_o)}")
+    check(not bad, f"K6 + K7 vs plain (B={odd}): {', '.join(bad)} out of tolerance")
+    ms6o = cuda_ms(lambda: KERNELS["K6"](*oargs[:13], **kw6), 10)
     k6 = entry(
         "riccati_sweep_backward", "riccati_sweep.cu", "riccati_sparse.py:926",
-        lqr["launches"]["K6"], errs["max_abs_K6"], cuda_ms(lambda: KERNELS["K6"](*bwd, **kw6), 10),
-        cuda_ms(lambda: plain6(*bwd, **kw6), 1), bound_of(B, bwd, (K, kf, rh), plain6, bwd, kw6), B,
+        lqr["launches"]["K6"], errs["max_abs_K6"], ms6, cuda_ms(lambda: plain6(*bwd, **kw6), 1),
+        bound6, B, route_taken=k6_route(B),
+        **team_fields(None, B, ms6, bound6, sweep_geometry("given", B, True)),
+        odd_B=odd, odd_B_route=k6_route(odd), odd_B_ms=ms6o,
+        odd_B_max_abs_err=errs_o["max_abs_K6"],
     )
     k7 = entry(
         "riccati_sweep_forward", "riccati_sweep.cu", "riccati_sparse.py:994",
@@ -979,6 +1054,8 @@ def phase_mission(name, extra=(), n_ticks=None):
         check(spread < 1e-3, f"mission {name}: leader RMSE spread {spread} m across groups")
     if not args.cpu and launches["K4"]:
         line += f"; K4 by {riccati_sparse.last_route()}"
+    if not args.cpu and launches["K6"]:
+        line += f"; K6 by {riccati_sparse.last_sweep_route()}"
     print(line)
     if args.cpu:
         return result

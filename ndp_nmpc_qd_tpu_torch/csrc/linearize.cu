@@ -2,22 +2,42 @@
 // scenario at its RTI iterates. Replaces the TPU kernel
 // `ops/pallas/linearize.py:linearize_stage_data` (body `_lin_kernel`).
 //
-// Design: one thread per scenario (128 threads a block, masked at b < B)
-// walks the N stages in a loop (the TPU kernel's sequential stage grid axis)
-// and writes the full (N+1, ., B) tensors itself: the terminal hq/gx and the
-// +-big velocity rows of nodes 0 and N, which the TPU wrapper concatenated
-// outside its kernel. The arithmetic is K1's phase 1 (`linearize_scenario`
-// in ndp.cuh), so K1 and K3 compute the same payload.
+// Design: the stages are independent, as the TPU kernel's grid (scenario
+// tiles, stage) computes them, so a block covers one stage k and TILE = 32
+// consecutive scenarios (blocks flat, stage fastest: block = tile * (N + 1)
+// + k), and the node k = N computes the terminal terms, dx0 and the +-big
+// rows of node N (node 0's with stage 0's bounds): the full (N+1, ., B)
+// tensors, which the TPU wrapper concatenated outside its kernel. Warp j
+// owns tangent column j (0-3 the quaternion states, 4-6 the body rates, 7
+// the collective), its lanes consecutive scenarios: each lane carries its
+// column's 10 tangent values through the RK4 step in registers and writes
+// the column's entries of a / b / bc across the warp (coalesced, in the jac
+// dtype). The primal RK4 points, which every column replays, are computed
+// NDP_K3_DESIGN 0: in every warp, beside its column (no shared memory, no
+// barrier); 1: once, by warp 0, and shared through shared memory behind
+// one block barrier; 2 is the one-thread design: a thread per (stage,
+// scenario), all 8 columns in registers by full unrolling. The stage's
+// other terms are split over warps 0-3 (0: hq and the quaternion rows of
+// gx; 1: gx's other rows and gu; 2: the defect r; 3: the bounds). Each
+// column's arithmetic is rk4_tangents' (ndp.cuh, which K1 runs), column by
+// column (rk4_points, rk4_tangent_step), so K1 and K3 compute the same
+// payload up to FMA contraction.
 //
 // What bounds it on this card: bytes. A scenario costs about 59k scalar f32
 // operations (the RK4 step and its 8 tangent columns, ~3k a stage) against
 // about 9.7 KB of inputs read and payload written (bf16 curvature): at
-// B=65536, ~0.19 ms of memory traffic against ~0.06 ms of arithmetic. The
-// thread keeps its tangents (80 floats) and RK4 points in registers without
-// spilling; every load and store is coalesced across the warp (batch
-// innermost).
+// B=65536, ~0.19 ms of memory traffic against ~0.06 ms of arithmetic. Every
+// load and store is coalesced across the warp (batch innermost), and no
+// array is indexed by a runtime value, so nothing goes to local memory.
 //
 // Bound to PyTorch through ctypes: plain C entry points, no PyTorch headers.
+
+#ifndef NDP_K3_DESIGN
+#define NDP_K3_DESIGN 0
+#endif
+#ifndef NDP_K3_MIN_BLOCKS  // blocks an SM that __launch_bounds__ asks registers for
+#define NDP_K3_MIN_BLOCKS 1
+#endif
 
 #include "ndp.cuh"
 
@@ -35,34 +55,288 @@ struct LinPtrs {
   QpPtrs q;         // out
 };
 
-}  // namespace ndp
+namespace k3 {
+
+constexpr int COLS = 8;  // tangent columns
+constexpr int TILE = NDP_K3_DESIGN == 2 ? 128 : 32;  // scenarios a block
+constexpr int THREADS = NDP_K3_DESIGN == 2 ? TILE : TILE * COLS;
+constexpr int PTS = 4 * 4;  // the quaternions of a substep's four points
+
+// Launch geometry: [lanes a scenario-stage, scenarios a block, threads a
+// block, blocks, shared-memory bytes a block].
+inline void geometry(int N, int substeps, long long B, long long* out) {
+  const long long tiles = (B + TILE - 1) / TILE;
+  out[0] = NDP_K3_DESIGN == 2 ? 1 : COLS;
+  out[1] = TILE;
+  out[2] = THREADS;
+  out[3] = tiles * (N + 1);
+  out[4] = NDP_K3_DESIGN == 1 ? 4LL * TILE * PTS * substeps : 0;
+}
+
+// One scenario's views of the launch's tensors.
+template <typename JT>
+struct Lane {
+  View<const float> xb, ub, xr, ur, fd, x0;
+  Payload<JT> w;
+};
 
 template <typename JT>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ Lane<JT> lane_at(const LinPtrs& p, const StepConsts& c, long long B,
+                                            long long b) {
+  return Lane<JT>{at(p.xb, NX, B, b), at(p.ub, NU, B, b), at(p.xr, NX, B, b),
+                  at(p.ur, NU, B, b), at(c.with_dist ? p.fd : nullptr, 3, B, b),
+                  at(p.x0, NX, B, b), payload_at<JT>(p.q, B, b)};
+}
+
+// Tangent column `col` of stage k into the payload (lin_stage_terms' scatter).
+template <typename JT>
+__device__ __forceinline__ void store_column(const Payload<JT>& w, int k, int col,
+                                             const float* tx) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    int field;
+    const int j = column_slot(col, i, field);
+    if (field == 0)
+      w.a(k, j) = stf<JT>(tx[i]);
+    else if (field == 1)
+      w.b(k, j) = stf<JT>(tx[i]);
+    else if (j >= 0)
+      w.bc(k, j) = tx[i];
+  }
+}
+
+// Stage k's terms besides the tangents (lin_stage_terms and
+// linearize_scenario, same expressions), job 0: hq and gx[6..9]; 1:
+// gx[0..5] and gu; 2: the defect r from the step's end state xn; 3: the
+// bounds. x, u: the stage's iterate.
+template <typename JT>
+__device__ __forceinline__ void stage_job(int job, const Lane<JT>& s, int k, const float* x,
+                                          const float* u, const float* xn, const StepConsts& c) {
+  const Payload<JT>& w = s.w;
+  if (job == 0) {
+    float xrq[4], qe[3], hq16[16], gxq[4];
+    for (int i = 0; i < 4; ++i) xrq[i] = s.xr(k, 6 + i);
+    qe_tiles(x + 6, xrq, qe);
+    hq_gxq_tiles(xrq, qe, c.q_diag + 7, hq16, gxq);
+    for (int j = 0; j < 16; ++j) w.hq(k, j) = stf<JT>(c.stage_scale * hq16[j]);
+    for (int i = 0; i < 4; ++i) w.gx(k, 6 + i) = c.stage_scale * gxq[i];
+  } else if (job == 1) {
+    for (int i = 0; i < 6; ++i) w.gx(k, i) = c.gx_scale[i] * (x[i] - s.xr(k, i));
+    for (int l = 0; l < NU; ++l) w.gu(k, l) = c.gu_scale[l] * (u[l] - s.ur(k, l));
+  } else if (job == 2) {
+    for (int i = 0; i < NX; ++i) w.r(k, i) = xn[i] - s.xb(k + 1, i);
+  } else if (job == 3) {
+    for (int l = 0; l < NU; ++l) {
+      w.lub(k, l) = c.u_lo[l] - u[l];
+      w.uub(k, l) = c.u_hi[l] - u[l];
+    }
+    for (int t = 0; t < 3; ++t) {
+      w.lxb(k, t) = k == 0 ? -c.big : c.v_lo[t] - x[3 + t];
+      w.uxb(k, t) = k == 0 ? c.big : c.v_hi[t] - x[3 + t];
+    }
+  }
+}
+
+// The terminal node's terms (linearize_scenario's tail), job 0: hq, gx; 1:
+// dx0 and the +-big rows of node N.
+template <typename JT>
+__device__ __forceinline__ void terminal_job(int job, const Lane<JT>& s, int N,
+                                             const StepConsts& c) {
+  const Payload<JT>& w = s.w;
+  if (job == 0) {
+    float x1T[NX], xrT[NX], hqT[16], gxT[NX];
+    for (int i = 0; i < NX; ++i) {
+      x1T[i] = s.xb(N, i);
+      xrT[i] = s.xr(N, i);
+    }
+    lin_terminal_terms(x1T, xrT, c, hqT, gxT);
+    for (int j = 0; j < 16; ++j) w.hq(N, j) = stf<JT>(hqT[j]);
+    for (int i = 0; i < NX; ++i) w.gx(N, i) = gxT[i];
+  } else if (job == 1) {
+    for (int i = 0; i < NX; ++i) w.dx0(0, i) = s.x0(0, i) - s.xb(0, i);
+    for (int t = 0; t < 3; ++t) {
+      w.lxb(N, t) = -c.big;
+      w.uxb(N, t) = c.big;
+    }
+  }
+}
+
+// The stage's iterate and forecast force.
+template <typename JT>
+__device__ __forceinline__ void load_point(const Lane<JT>& s, int k, float* x, float* u,
+                                           float* fd) {
+  for (int i = 0; i < NX; ++i) x[i] = s.xb(k, i);
+  for (int l = 0; l < NU; ++l) u[l] = s.ub(k, l);
+  if (s.fd.p)
+    for (int t = 0; t < 3; ++t) fd[t] = s.fd(k, t);
+}
+
+}  // namespace k3
+}  // namespace ndp
+
+#if NDP_K3_DESIGN == 0
+// A warp a tangent column, the primal points in every warp.
+template <typename JT>
+__global__ void __launch_bounds__(ndp::k3::THREADS, NDP_K3_MIN_BLOCKS)
     linearize_kernel(ndp::LinPtrs p, ndp::StepConsts c, long long B) {
   using namespace ndp;
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  using namespace ndp::k3;
+  const int N = c.n_stages;
+  const long long tile = blockIdx.x / (N + 1);
+  const int k = (int)(blockIdx.x - tile * (N + 1));
+  const int col = threadIdx.x / 32;
+  const long long b = tile * TILE + threadIdx.x % 32;
   if (b >= B) return;
-  linearize_scenario<JT>(at(p.xb, NX, B, b), at(p.ub, NU, B, b), at(p.xr, NX, B, b),
-                         at(p.ur, NU, B, b), at(c.with_dist ? p.fd : nullptr, 3, B, b),
-                         at(p.x0, NX, B, b), payload_at<JT>(p.q, B, b), c);
+  const Lane<JT> s = lane_at<JT>(p, c, B, b);
+  if (k == N) {
+    terminal_job(col, s, N, c);
+    return;
+  }
+  float x[NX], u[NU], fd[3];
+  load_point(s, k, x, u, fd);
+  const float* fdp = s.fd.p ? fd : nullptr;
+  float tx[NX], tu[NU], xs[NX], xn[NX];
+  tangent_seed(col, tx, tu);
+  for (int i = 0; i < NX; ++i) xs[i] = x[i];
+  for (int sub = 0; sub < c.substeps; ++sub) {
+    float x2[NX], x3[NX], x4[NX];
+    rk4_points(xs, u, fdp, c, x2, x3, x4, xn);
+    rk4_tangent_step(xs, x2, x3, x4, u, tu, c, tx);
+    for (int i = 0; i < NX; ++i) xs[i] = xn[i];
+  }
+  store_column(s.w, k, col, tx);
+  stage_job(col, s, k, x, u, xs, c);
 }
+#elif NDP_K3_DESIGN == 1
+// A warp a tangent column, the primal points by warp 0 through shared
+// memory ([substep][point][quaternion row][TILE]).
+template <typename JT>
+__global__ void __launch_bounds__(ndp::k3::THREADS, NDP_K3_MIN_BLOCKS)
+    linearize_kernel(ndp::LinPtrs p, ndp::StepConsts c, long long B) {
+  using namespace ndp;
+  using namespace ndp::k3;
+  extern __shared__ float4 ndp_smem[];
+  float* const pts = reinterpret_cast<float*>(ndp_smem);
+  const int N = c.n_stages;
+  const long long tile = blockIdx.x / (N + 1);
+  const int k = (int)(blockIdx.x - tile * (N + 1));
+  const int col = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long b = tile * TILE + lane;
+  const bool live = b < B;
+  const Lane<JT> s = lane_at<JT>(p, c, B, live ? b : 0);
+  if (k == N) {  // the whole block
+    if (live) terminal_job(col, s, N, c);
+    return;
+  }
+  float x[NX], u[NU], fd[3];
+  if (live) load_point(s, k, x, u, fd);
+  if (col == 0 && live) {
+    const float* fdp = s.fd.p ? fd : nullptr;
+    float xs[NX], xn[NX];
+    for (int i = 0; i < NX; ++i) xs[i] = x[i];
+    for (int sub = 0; sub < c.substeps; ++sub) {
+      float x2[NX], x3[NX], x4[NX];
+      rk4_points(xs, u, fdp, c, x2, x3, x4, xn);
+      float* const q = pts + sub * PTS * TILE + lane;
+      for (int i = 0; i < 4; ++i) {
+        q[i * TILE] = xs[6 + i];
+        q[(4 + i) * TILE] = x2[6 + i];
+        q[(8 + i) * TILE] = x3[6 + i];
+        q[(12 + i) * TILE] = x4[6 + i];
+      }
+      for (int i = 0; i < NX; ++i) xs[i] = xn[i];
+    }
+    stage_job(2, s, k, x, u, xs, c);
+  } else if (live && col < 4) {
+    stage_job(col == 2 ? 0 : col, s, k, x, u, nullptr, c);  // jobs 1, 0, 3
+  }
+  __syncthreads();
+  if (!live) return;
+  float tx[NX], tu[NU];
+  tangent_seed(col, tx, tu);
+  for (int sub = 0; sub < c.substeps; ++sub) {
+    float xs[NX], x2[NX], x3[NX], x4[NX];  // f_cont_jvp reads rows 6-9 only
+    const float* const q = pts + sub * PTS * TILE + lane;
+    for (int i = 0; i < 4; ++i) {
+      xs[6 + i] = q[i * TILE];
+      x2[6 + i] = q[(4 + i) * TILE];
+      x3[6 + i] = q[(8 + i) * TILE];
+      x4[6 + i] = q[(12 + i) * TILE];
+    }
+    rk4_tangent_step(xs, x2, x3, x4, u, tu, c, tx);
+  }
+  store_column(s.w, k, col, tx);
+}
+#else
+// A thread a (stage, scenario), the 8 columns in registers.
+template <typename JT>
+__global__ void __launch_bounds__(ndp::k3::THREADS, NDP_K3_MIN_BLOCKS)
+    linearize_kernel(ndp::LinPtrs p, ndp::StepConsts c, long long B) {
+  using namespace ndp;
+  using namespace ndp::k3;
+  const int N = c.n_stages;
+  const long long tile = blockIdx.x / (N + 1);
+  const int k = (int)(blockIdx.x - tile * (N + 1));
+  const long long b = tile * TILE + threadIdx.x;
+  if (b >= B) return;
+  const Lane<JT> s = lane_at<JT>(p, c, B, b);
+  if (k == N) {
+    terminal_job(0, s, N, c);
+    terminal_job(1, s, N, c);
+    return;
+  }
+  float x[NX], u[NU], fd[3];
+  load_point(s, k, x, u, fd);
+  const float* fdp = s.fd.p ? fd : nullptr;
+  float T[COLS][NX], xs[NX], xn[NX];
+#pragma unroll
+  for (int col = 0; col < COLS; ++col) {
+    float tu[NU];
+    tangent_seed(col, T[col], tu);
+  }
+  for (int i = 0; i < NX; ++i) xs[i] = x[i];
+  for (int sub = 0; sub < c.substeps; ++sub) {
+    float x2[NX], x3[NX], x4[NX];
+    rk4_points(xs, u, fdp, c, x2, x3, x4, xn);
+#pragma unroll
+    for (int col = 0; col < COLS; ++col) {
+      float tx0[NX], tu[NU];
+      tangent_seed(col, tx0, tu);
+      rk4_tangent_step(xs, x2, x3, x4, u, tu, c, T[col]);
+    }
+    for (int i = 0; i < NX; ++i) xs[i] = xn[i];
+  }
+#pragma unroll
+  for (int col = 0; col < COLS; ++col) store_column(s.w, k, col, T[col]);
+  for (int job = 0; job < 4; ++job) stage_job(job, s, k, x, u, xs, c);
+}
+#endif
 
 extern "C" {
 
 int linearize_consts_size() { return (int)sizeof(ndp::StepConsts); }
 int linearize_ptrs_size() { return (int)sizeof(ndp::LinPtrs); }
 
+// The launch geometry for the ctypes mirror (`linearize.geometry`): out =
+// [lanes a scenario-stage, scenarios a block, threads a block, blocks,
+// shared-memory bytes a block].
+void linearize_geometry(int n_stages, int substeps, long long B, long long* out) {
+  ndp::k3::geometry(n_stages, substeps, B, out);
+}
+
 // Launches the linearization on `stream`; returns cudaGetLastError().
 int linearize_launch(int jac_bf16, const ndp::StepConsts* c, const ndp::LinPtrs* p, long long B,
                      void* stream) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
+  long long g[5];
+  ndp::k3::geometry(c->n_stages, c->substeps, B, g);
+  if (B < 1 || c->n_stages < 1 || g[3] >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = (unsigned)g[3];
+  const int threads = (int)g[2], smem = (int)g[4];
   if (jac_bf16)
-    NDP_LAUNCH(linearize_kernel<__nv_bfloat16>, blocks, threads, 0, s, *p, *c, B);
+    NDP_LAUNCH(linearize_kernel<__nv_bfloat16>, blocks, threads, smem, s, *p, *c, B);
   else
-    NDP_LAUNCH(linearize_kernel<float>, blocks, threads, 0, s, *p, *c, B);
+    NDP_LAUNCH(linearize_kernel<float>, blocks, threads, smem, s, *p, *c, B);
   return (int)cudaGetLastError();
 }
 

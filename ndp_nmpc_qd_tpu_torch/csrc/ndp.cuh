@@ -268,7 +268,7 @@ __device__ __forceinline__ void fence_async_smem() {
 }
 
 // ---- the streamed sweeps' rows, element by element ----
-// A block of a streamed sweep (K8, K4) holds one stage's input rows in a
+// A block of a streamed sweep (K8, K4, K6) holds one stage's input rows in a
 // landing buffer and its output rows in output buffers, [row][S]: row e of
 // a field is one run of the block's S scenarios. Where the rows cannot be
 // tensor-copied (above), K8 moves them with these, one f32 element a copy
@@ -353,8 +353,8 @@ __device__ __forceinline__ float nmax(float a, float b) { return (a != a || a > 
 // NDP_TEAM_CLOCKS (tools/time_team_kernels.py and tools/time_sweep_kernels.py
 // read them through <kernel>_clocks); without it team_clock compiles to
 // nothing. K1/K2 use the phases up to CK_STAGE_OUT; the streamed sweeps (K8,
-// K4) also CK_WAIT (the wait for a stage's inputs and the block barrier) and
-// CK_BWD_D (K8's gain solves).
+// K4, K6) also CK_WAIT (the wait for a stage's inputs and the block barrier)
+// and CK_BWD_D (K8's gain solves).
 enum ClockPhase {
   CK_STAGE_IN, CK_LINEARIZE, CK_START, CK_BWD_TERMINAL, CK_BWD_A, CK_BWD_B, CK_BWD_C,
   CK_BWD_E, CK_ROLLOUT, CK_ROWS, CK_ROW_SUMS, CK_PASS_B, CK_STAGE_OUT, CK_WAIT,
@@ -515,6 +515,66 @@ __device__ inline void rk4_tangents(const float* x_in, const float* u, const flo
       x[i] = x[i] + c.rk_sixth * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
   }
   for (int i = 0; i < NX; ++i) xn[i] = x[i];
+}
+
+// The column-wise form of rk4_tangents, for K3 (linearize.cu), which gives
+// each tangent column a thread of its own: the same expressions and order,
+// one substep at a time. rk4_points: the substep's evaluation points x2,
+// x3, x4 from x, and the next state xn.
+__device__ __forceinline__ void rk4_points(const float* x, const float* u, const float* fd,
+                                           const StepConsts& c, float* x2, float* x3, float* x4,
+                                           float* xn) {
+  float k1[NX], k2[NX], k3[NX], k4[NX];
+  f_cont(x, u, fd, c, k1);
+  for (int i = 0; i < NX; ++i) x2[i] = x[i] + c.rk_half * k1[i];
+  f_cont(x2, u, fd, c, k2);
+  for (int i = 0; i < NX; ++i) x3[i] = x[i] + c.rk_half * k2[i];
+  f_cont(x3, u, fd, c, k3);
+  for (int i = 0; i < NX; ++i) x4[i] = x[i] + c.rk_step * k3[i];
+  f_cont(x4, u, fd, c, k4);
+  for (int i = 0; i < NX; ++i)
+    xn[i] = x[i] + c.rk_sixth * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
+}
+// Tangent column `col` (0-3 the quaternion states, 4-7 the controls) at
+// the start of the step: its seed, and its control direction tu.
+__device__ __forceinline__ void tangent_seed(int col, float* tx, float* tu) {
+  for (int i = 0; i < NX; ++i) tx[i] = (col < 4 && i == 6 + col) ? 1.0f : 0.0f;
+  for (int l = 0; l < NU; ++l) tu[l] = col == 4 + l ? 1.0f : 0.0f;
+}
+// One substep of a tangent column tx (in place) along control direction tu,
+// replayed on the substep's points (f_cont_jvp reads their quaternions
+// x[6..9] only).
+__device__ __forceinline__ void rk4_tangent_step(const float* x, const float* x2, const float* x3,
+                                                 const float* x4, const float* u,
+                                                 const float* tu, const StepConsts& c,
+                                                 float* tx) {
+  float t1[NX], t2[NX], t3[NX], t4[NX], tt[NX];
+  f_cont_jvp(x, u, tx, tu, t1);
+  for (int i = 0; i < NX; ++i) tt[i] = tx[i] + c.rk_half * t1[i];
+  f_cont_jvp(x2, u, tt, tu, t2);
+  for (int i = 0; i < NX; ++i) tt[i] = tx[i] + c.rk_half * t2[i];
+  f_cont_jvp(x3, u, tt, tu, t3);
+  for (int i = 0; i < NX; ++i) tt[i] = tx[i] + c.rk_step * t3[i];
+  f_cont_jvp(x4, u, tt, tu, t4);
+  for (int i = 0; i < NX; ++i)
+    tx[i] = tx[i] + c.rk_sixth * (t1[i] + 2.0f * t2[i] + 2.0f * t3[i] + t4[i]);
+}
+// Where tangent column `col` goes in the stage's payload (lin_stage_terms'
+// scatter): entry i of the column to a40 / b30 / bc6 at the returned
+// offset, -1 where the column's row is not stored (the collective column's
+// quaternion rows, which are zero). Field: 0 a, 1 b, 2 bc.
+__device__ __forceinline__ int column_slot(int col, int i, int& field) {
+  if (col < 4) {
+    field = 0;
+    return i < 3 ? i * 4 + col : i < 6 ? 12 + (i - 3) * 4 + col : 24 + (i - 6) * 4 + col;
+  }
+  if (col < 7) {
+    const int l = col - 4;
+    field = 1;
+    return i < 3 ? i * 3 + l : i < 6 ? 9 + (i - 3) * 3 + l : 18 + (i - 6) * 3 + l;
+  }
+  field = 2;
+  return i < 6 ? i : -1;
 }
 
 // Quaternion tracking error (ops/quat.py:error_vector).

@@ -207,53 +207,66 @@ def c_geometry(fn, B: int, n_stages: int, jac_bf16: bool) -> dict:
 
 
 # ---- the streamed sweeps' launch geometry: K8 (csrc/riccati_packed.cu,
-# ndp::k8) and K4 (csrc/riccati_iter.cu, ndp::k4) ----
+# ndp::k8), K4 and K6 (csrc/riccati_iter.cu and csrc/riccati_sweep.cu, the
+# body of csrc/ndp_stream.cuh over the sources ndp::GlueSrc / GivenSrc) ----
 
-# Lanes a scenario (ndp::k8::TEAM, NDP_TEAM as riccati_iter.cu sets it), the
-# compute threads a block at most (NDP_K8_THREADS / NDP_K4_THREADS as built by
-# default) and the scenarios 16 bytes of a row hold, of each. A block's shared
-# memory is its S slots (one stage buffer and the sweep's working set each,
-# whatever the horizon), then a landing buffer of one stage's input rows and
-# two output buffers of a stage's output rows, each field a box [rows][S] on
-# 128 bytes, and an mbarrier; its threads are the compute threads in whole
-# warps and one producer warp.
+# Lanes a scenario (ndp::k8::TEAM, NDP_TEAM as riccati_iter.cu and
+# riccati_sweep.cu set it), the compute threads a block at most
+# (NDP_K8_THREADS / NDP_K4_THREADS / NDP_K6_THREADS as built by default) and
+# the scenarios 16 bytes of a row hold, of each. A block's shared memory is
+# its S slots (one stage buffer and the sweep's working set each, whatever
+# the horizon), then a landing buffer of one stage's input rows and two
+# output buffers of a stage's output rows, each field a box [rows][S] on 128
+# bytes, and an mbarrier; its threads are the compute threads in whole warps
+# and one producer warp.
 SWEEP_KERNELS = {
     "packed": dict(team=4, max_threads=256, vec=4),
     "glue": dict(team=4, max_threads=320, vec=8),
+    "given": dict(team=4, max_threads=320, vec=8),
 }
 _PACKED_IN = (100, 40, 10, 100, 16, 10, 4, 10, 4)  # a, b, r, hxx, huu, gx, gu, sig_x, sig_u
 _PACKED_OUT = (40, 4)                              # K, kf
-_GLUE_IN_F32 = (10, 4, 6, 10, 4, 4, 3, 3, 10, 4, 4, 4, 3, 3, 4, 4, 3, 3, 1)  # ..., mu
-_GLUE_IN_JAC = (16, 40, 30)                        # hq, a, b
-_GLUE_OUT = (40, 4, 10, 1)                         # K, kf, rh, res2
-_GLUE_SLOT = (("gx", 10), ("gu", 4), ("bc", 6), ("r", 10), ("lub", 4), ("uub", 4), ("lxb", 3),
+_STREAM_IN_JAC = (16, 40, 30)                      # hq, a, b
+# per source: its f32 input fields' rows (landing order), its output fields'
+# rows, and its stage buffer's f32 arrays before the jac-dtype payload
+_STREAM = {
+    "glue": dict(
+        in_f32=(10, 4, 6, 10, 4, 4, 3, 3, 10, 4, 4, 4, 3, 3, 4, 4, 3, 3, 1),  # ..., mu
+        out=(40, 4, 10, 1),  # K, kf, rh, res2
+        slot=(("gx", 10), ("gu", 4), ("bc", 6), ("r", 10), ("lub", 4), ("uub", 4), ("lxb", 3),
               ("uxb", 3), ("zx", 10), ("zu", 4), ("sul", 4), ("suu", 4), ("sxl", 3), ("sxu", 3),
-              ("lul", 4), ("luu", 4), ("lxl", 3), ("lxu", 3), ("K", 40), ("kf", 4), ("rh", 10))
+              ("lul", 4), ("luu", 4), ("lxl", 3), ("lxu", 3), ("K", 40), ("kf", 4), ("rh", 10))),
+    "given": dict(
+        in_f32=(10, 4, 6, 10, 10, 4, 4, 4, 3, 3),  # gx gu bc r zx zu sig_u corr_u sig_x corr_x
+        out=(40, 4, 10),  # K, kf, rh
+        slot=(("gx", 10), ("gu", 4), ("bc", 6), ("r", 10), ("zx", 10), ("zu", 4), ("sig_u", 4),
+              ("corr_u", 4), ("sig_x", 3), ("corr_x", 3), ("K", 40), ("kf", 4), ("rh", 10))),
+}
 
 
 def sweep_arrays(kind: str, jac_bf16: bool = False) -> tuple:
     """(slot arrays, column arrays): (name, bytes) of one scenario's slot of
-    K8 ("packed") or K4 ("glue") in slot order, every array starting on 16
-    bytes, and of its columns of the block's landing buffer (one stage's
-    input rows; K4's also mu) and two output buffers (a stage's output rows:
-    K8 K and kf, K4 also rh and res2)."""
+    K8 ("packed"), K4 ("glue") or K6 ("given") in slot order, every array
+    starting on 16 bytes, and of its columns of the block's landing buffer
+    (one stage's input rows; K4's also mu) and two output buffers (a stage's
+    output rows: K8 K and kf, K4 and K6 also rh, K4 res2)."""
     f = lambda n: 16 * -(-n // 4)  # floats -> bytes, padded to 16
     if kind == "packed":
         slot = [("abr", f(160)), ("hxx_cols", f(120)), ("huu_cols", f(16)), ("ghat", f(16)),
                 ("sig", f(16)), ("kf", f(4)), ("pabr_t", f(15 * 16)), ("k_cols", f(40))]
         cols = [("land", 4 * sum(_PACKED_IN)), ("out", 2 * 4 * sum(_PACKED_OUT))]
     else:
-        jb = 2 if jac_bf16 else 4
-        slot = [(n, f(d)) for n, d in _GLUE_SLOT] + [("hq_a_b", 16 * -(-86 * jb // 16))]
+        src, jb = _STREAM[kind], 2 if jac_bf16 else 4
+        slot = [(n, f(d)) for n, d in src["slot"]] + [("hq_a_b", 16 * -(-86 * jb // 16))]
         slot += [("work", f(WORK_FLOATS)), ("zx1", f(10))]
-        cols = [("land_f32", 4 * sum(_GLUE_IN_F32)), ("land_jac", jb * sum(_GLUE_IN_JAC)),
-                ("out", 2 * 4 * sum(_GLUE_OUT))]
+        cols = [("land_f32", 4 * sum(src["in_f32"])), ("land_jac", jb * sum(_STREAM_IN_JAC)),
+                ("out", 2 * 4 * sum(src["out"]))]
     return slot, cols
 
 
 def sweep_smem(kind: str, S: int, jac_bf16: bool = False) -> int:
     """Shared-memory bytes of a block of S scenarios (`ndp::k8::layout`,
-    `ndp::k4::layout`)."""
+    `ndp::stream::layout`)."""
     r = lambda b: -(-b // 128) * 128
     slot, _ = sweep_arrays(kind, jac_bf16)
     stride = sum(b for _, b in slot) // 4
@@ -261,19 +274,19 @@ def sweep_smem(kind: str, S: int, jac_bf16: bool = False) -> int:
     if kind == "packed":
         boxes = [4 * rows for rows in _PACKED_IN] + 2 * [4 * rows for rows in _PACKED_OUT]
     else:
-        jb = 2 if jac_bf16 else 4
-        boxes = ([4 * rows for rows in _GLUE_IN_F32] + [jb * rows for rows in _GLUE_IN_JAC]
-                 + 2 * [4 * rows for rows in _GLUE_OUT])
+        src, jb = _STREAM[kind], 2 if jac_bf16 else 4
+        boxes = ([4 * rows for rows in src["in_f32"]] + [jb * rows for rows in _STREAM_IN_JAC]
+                 + 2 * [4 * rows for rows in src["out"]])
     return r(4 * S * stride) + sum(r(b * S) for b in boxes) + 16
 
 
 def sweep_geometry(kind: str, B: int, jac_bf16: bool = False) -> dict:
-    """Launch geometry of K8 ("packed") or K4 ("glue") for B scenarios, as
-    `ndp::k8::geometry` / `ndp::k4::geometry` compute it: as many scenarios
-    a block as fit SMEM_MAX, at most the kernel's compute threads and B, a
-    multiple of the step that fills whole warps and 16-byte rows when there
-    are that many; the compute threads in whole warps, then the producer
-    warp."""
+    """Launch geometry of K8 ("packed"), K4 ("glue") or K6 ("given") for B
+    scenarios, as `ndp::k8::geometry` / `ndp::stream::geometry` compute it:
+    as many scenarios a block as fit SMEM_MAX, at most the kernel's compute
+    threads and B, a multiple of the step that fills whole warps and 16-byte
+    rows when there are that many; the compute threads in whole warps, then
+    the producer warp."""
     k = SWEEP_KERNELS[kind]
     S = min(k["max_threads"] // k["team"], B)
     while S > 1 and sweep_smem(kind, S, jac_bf16) > SMEM_MAX:
@@ -288,3 +301,22 @@ def sweep_geometry(kind: str, B: int, jac_bf16: bool = False) -> dict:
         k["team"], S, -(-S * k["team"] // 32) * 32 + 32, -(-B // S),
         sweep_smem(kind, S, jac_bf16), sum(b for _, b in slot + cols), 4 * stride,
     )))
+
+
+# ---- the linearization's launch geometry (K3, csrc/linearize.cu, ndp::k3):
+# a block covers one stage (or the terminal node) and LIN_TILE consecutive
+# scenarios, a warp for each of the 8 tangent columns; no shared memory ----
+
+LIN_TILE = 32
+LIN_COLS = 8
+
+
+def lin_geometry(B: int, n_stages: int, substeps: int = 1) -> dict:
+    """Launch geometry of K3 for B scenarios, as `ndp::k3::geometry`
+    computes it: lanes a (stage, scenario), scenarios a block, threads a
+    block, blocks ((N + 1) a tile of scenarios), shared memory a block."""
+    return dict(
+        threads_per_scenario=LIN_COLS, scenarios_per_block=LIN_TILE,
+        threads_per_block=LIN_TILE * LIN_COLS, blocks=-(-B // LIN_TILE) * (n_stages + 1),
+        smem_bytes_per_block=0,
+    )

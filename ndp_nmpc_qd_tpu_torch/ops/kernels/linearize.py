@@ -337,6 +337,23 @@ class _LinPtrs(ctypes.Structure):
     _fields_ = _cuda.pointers(("xb", "ub", "xr", "ur", "fd", "x0")) + [("q", _cuda.QpPtrs)]
 
 
+def _lib(lib=None):
+    return _cuda.bind("linearize", _LinPtrs, ("linearize_launch",), "linearize_geometry", lib=lib)
+
+
+GEOMETRY_KEYS = ("threads_per_scenario", "scenarios_per_block", "threads_per_block", "blocks",
+                 "smem_bytes_per_block")
+
+
+def geometry(B: int, n_stages: int, substeps: int = 1, lib=None) -> dict:
+    """K3's launch geometry as its library computes it (mirrored by
+    `_cuda.lin_geometry`): lanes a (stage, scenario), scenarios a block,
+    threads a block, blocks, shared memory a block."""
+    out = (ctypes.c_longlong * len(GEOMETRY_KEYS))()
+    _lib(lib).linearize_geometry(n_stages, substeps, B, out)
+    return dict(zip(GEOMETRY_KEYS, out))
+
+
 def linearize_stage_data(xb, ub, xr, ur, fd, x0, **consts):
     """The SparseQp payload at the RTI iterates, one kernel launch.
 
@@ -350,6 +367,15 @@ def linearize_stage_data(xb, ub, xr, ur, fd, x0, **consts):
     """
     if xb.device.type == "cpu":
         return linearize_stage_data_plain(xb, ub, xr, ur, fd, x0, **consts)
+    out = linearize_launch(xb, ub, xr, ur, fd, x0, **consts)
+    linearize_stage_data.launches += 1
+    return out
+
+
+def linearize_launch(xb, ub, xr, ur, fd, x0, lib=None, **consts):
+    """Launch K3 from `lib` (a build of csrc/linearize.cu, such as a variant
+    of `_build.load`; None: the default build) on CUDA tensors and return
+    the payload as `linearize_stage_data`; counts nothing."""
     _cuda.need_cuda("linearize_stage_data", xb)
     Np1, _, B = xb.shape
     N = Np1 - 1
@@ -363,7 +389,6 @@ def linearize_stage_data(xb, ub, xr, ur, fd, x0, **consts):
         ("xr", xr, (Np1, NX, B)), ("ur", ur, (N, NU, B)), ("x0", x0, (1, NX, B)),
     ) + ((("fd", fd, (Np1, 3, B)),) if with_dist else ()):
         _cuda.check(name, t, shape, dev)
-    lib = _cuda.bind("linearize", _LinPtrs, ("linearize_launch",))
     shapes = _cuda.qp_shapes(N, B)
     jd = torch.bfloat16 if jac_bf16 else torch.float32
     out = {
@@ -376,8 +401,7 @@ def linearize_stage_data(xb, ub, xr, ur, fd, x0, **consts):
         fd=fd.data_ptr() if with_dist else None, x0=x0.data_ptr(),
         q=_cuda.qp_ptrs(out, N, B, jac_bf16, dev),
     )
-    _cuda.launch(lib.linearize_launch, jac_bf16, _cuda.step_consts(N, consts), ptrs, B, dev)
-    linearize_stage_data.launches += 1
+    _cuda.launch(_lib(lib).linearize_launch, jac_bf16, _cuda.step_consts(N, consts), ptrs, B, dev)
     return tuple(out[n] for n in _cuda.QP_FIELDS)
 
 

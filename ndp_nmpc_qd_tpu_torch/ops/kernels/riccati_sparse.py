@@ -505,7 +505,7 @@ def geometry(B: int, jac_bf16: bool, lib=None) -> dict:
     return _cuda.c_geometry(_lib(lib).riccati_backward_geometry, B, 0, jac_bf16)
 
 
-ROUTES = ("one-thread sweep", "tensor copies")  # K4's kernel, by its C route code
+ROUTES = ("one-thread sweep", "tensor copies")  # K4's and K6's kernel, by the C route code
 
 
 def last_route(lib=None) -> str:
@@ -700,11 +700,26 @@ class _SweepPtrs(ctypes.Structure):
     ))
 
 
-def _sweep_lib():
+def _sweep_lib(lib=None):
     return _cuda.bind(
         "riccati_sweep", _SweepPtrs,
         ("riccati_sweep_backward_launch", "riccati_sweep_forward_launch"),
+        "riccati_sweep_backward_geometry", lib=lib,
     )
+
+
+def sweep_geometry(B: int, jac_bf16: bool, lib=None) -> dict:
+    """K6's launch geometry as its library computes it (mirrored by
+    `_cuda.sweep_geometry("given", B, jac_bf16)`)."""
+    return _cuda.c_geometry(_sweep_lib(lib).riccati_sweep_backward_geometry, B, 0, jac_bf16)
+
+
+def last_sweep_route(lib=None) -> str:
+    """Which kernel K6's last launch from `lib` (None: the default build)
+    ran: "tensor copies" (the teams fed by tensor copies: B a multiple of 8,
+    every tensor on 16 bytes) or "one-thread sweep"."""
+    code = _sweep_lib(lib).riccati_sweep_backward_route()
+    return ROUTES[code] if code >= 0 else "none"
 
 
 def _sweep_ptrs(qp: dict, tensors: dict, a):
@@ -731,23 +746,29 @@ def riccati_sweep_backward(
     """K6, the backward sweep with the row terms given, one kernel launch;
     arguments and results as `riccati_sweep_backward_plain`. Counts its
     launches in `riccati_sweep_backward.launches`."""
+    args = (hq, gx, gu, a, b, bc, r, zx, zu, sig_u, sig_x, corr_u, corr_x)
     if a.device.type == "cpu":
-        return riccati_sweep_backward_plain(
-            hq, gx, gu, a, b, bc, r, zx, zu, sig_u, sig_x, corr_u, corr_x, **consts,
-        )
+        return riccati_sweep_backward_plain(*args, **consts)
+    out = sweep_backward_launch(*args, **consts)
+    riccati_sweep_backward.launches += 1
+    return out
+
+
+def sweep_backward_launch(
+    hq, gx, gu, a, b, bc, r, zx, zu, sig_u, sig_x, corr_u, corr_x, lib=None, **consts,
+):
+    """Launch K6 from `lib` (a build of csrc/riccati_sweep.cu, such as a
+    variant of `_build.load`; None: the default build) on CUDA tensors and
+    return (K, kf, rhat); counts nothing."""
     N, _, B = a.shape
-    out = dict(
-        K=torch.empty((N, NU * NX, B), dtype=torch.float32, device=a.device),
-        kf=torch.empty((N, NU, B), dtype=torch.float32, device=a.device),
-        rh=torch.empty((N, NX, B), dtype=torch.float32, device=a.device),
-    )
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=a.device)
+    out = dict(K=new(N, NU * NX, B), kf=new(N, NU, B), rh=new(N, NX, B))
     ptrs, N, B = _sweep_ptrs(
         dict(hq=hq, gx=gx, gu=gu, a=a, b=b, bc=bc, r=r),
         dict(zx=zx, zu=zu, sig_u=sig_u, sig_x=sig_x, corr_u=corr_u, corr_x=corr_x, **out), a,
     )
-    _cuda.launch(_sweep_lib().riccati_sweep_backward_launch, a.dtype == torch.bfloat16,
+    _cuda.launch(_sweep_lib(lib).riccati_sweep_backward_launch, a.dtype == torch.bfloat16,
                  _cuda.step_consts(N, consts), ptrs, B, a.device)
-    riccati_sweep_backward.launches += 1
     return out["K"], out["kf"], out["rh"]
 
 

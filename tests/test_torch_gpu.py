@@ -12,11 +12,13 @@ at their own scale (one bf16 ulp of a Jacobian entry may flip). Both: `ok`
 identical.
 
 K1 and K2 run a team of lanes a scenario with the scenario's working set
-in shared memory, K8 and K4 the same one stage at a time (the rows staged
-by tensor copies where B allows them, element by element otherwise); B=1
-and B=301 leave a ragged last block whatever the geometry, B=304 takes the
-tensor copies, and a NaN in one scenario's input must stay in that
-scenario.
+in shared memory, K8, K4 and K6 the same one stage at a time (the rows
+staged by tensor copies where B allows them; otherwise K8 copies element by
+element and K4 and K6 run their one-thread sweeps); K3 a warp for each
+tangent column, a block for a stage of 32 scenarios. B=1 and B=301 leave a
+ragged last block whatever the geometry, B=304 takes the tensor copies,
+B=65535 is the swarms' batch, and a NaN in one scenario's input must stay in
+that scenario.
 
 The two-kernel path's kernels (K3 linearization, K2 whole IPM with and
 without the folded axpy, K4/K5 one glue-fused IPM iteration), K6/K7 and the
@@ -121,7 +123,8 @@ def test_kernel_matches_plain_on_the_card(jac_bf16, B):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 301])  # 301: a ragged last block for any geometry
+# 301: a ragged last block for any geometry; 65535: the swarms' batch
+@pytest.mark.parametrize("B", [1, 301, 65535])
 @pytest.mark.parametrize("jac_bf16", [False, True])
 def test_two_kernel_path_kernels_match_plain_on_the_card(jac_bf16, B):
     if not torch.cuda.is_available():
@@ -196,16 +199,19 @@ def test_team_kernels_keep_a_nan_in_its_scenario(jac_bf16):
 
 
 @pytest.mark.gpu
+# 300: not a multiple of the 128-thread block; 304: K6's tensor copies
+@pytest.mark.parametrize("B", [1, 300, 301, 304])
 @pytest.mark.parametrize("call", ["lqr_start", "unfused_glue"])
 @pytest.mark.parametrize("jac_bf16", [False, True])
-def test_sweep_kernels_match_plain_on_the_card(jac_bf16, call):
+def test_sweep_kernels_match_plain_on_the_card(jac_bf16, call, B):
     """K6 and K7 (`riccati_sweep_sparse`) in both ways the IPM calls them,
-    with both payloads, at the tolerances of `testing.check_sweep`."""
+    with both payloads, at the tolerances of `testing.check_sweep`, K6 on
+    the route its batch takes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     cfg = NdpNmpcConfig()
-    N, B = cfg.ocp.N_node, 300  # not a multiple of the 128-thread block
+    N = cfg.ocp.N_node
     lc = lin_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16)
     ic = ipm_consts(cfg.ocp, num_iters=3)
     qp = linearize.linearize_stage_data_plain(*testing.kernel_inputs(B, N, dev, seed=3), **lc)
@@ -217,6 +223,8 @@ def test_sweep_kernels_match_plain_on_the_card(jac_bf16, call):
     torch.cuda.synchronize()
     assert not bad, f"K6/K7 ({call}): {bad} out of tolerance: {testing.describe(errs)}"
     assert counts() == (before[0] + 1, before[1] + 1)
+    assert riccati_sparse.last_sweep_route() == (
+        "tensor copies" if B % 8 == 0 else "one-thread sweep")
 
 
 @pytest.mark.gpu
@@ -283,10 +291,10 @@ def test_streamed_glue_sweep_k4_matches_plain(jac_bf16, B):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [301, 304])
 def test_streamed_sweeps_keep_a_nan_in_its_scenario(B):
-    """K8 with one scenario's A NaN and K4 (both payloads) with one
-    scenario's iterate NaN: that scenario's outputs are NaN where the plain
-    version's are, and every other scenario matches its plain value at the
-    tolerances above."""
+    """K8 with one scenario's A NaN, K4 and K6 (both payloads, K6 in both
+    ways the IPM calls it) with one scenario's iterate NaN: that scenario's
+    outputs are NaN where the plain version's are, and every other scenario
+    matches its plain value at the tolerances above."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -323,3 +331,10 @@ def test_streamed_sweeps_keep_a_nan_in_its_scenario(B):
         torch.cuda.synchronize()
         held({n: (kind, g, r) for (n, kind), g, r in zip(
             (("K", "primal"), ("kf", "primal"), ("rhat", "primal"), ("res2", "resid")), got, ref)})
+        for call in ("lqr_start", "unfused_glue"):
+            args = [t.clone() for t in testing.sweep_args(qp, ic, call)[0][:13]]
+            args[7][4, 2, bad_b] = float("nan")
+            got = riccati_sparse.riccati_sweep_backward(*args, **kw)
+            ref = riccati_sparse.riccati_sweep_backward_plain(*args, **kw)
+            torch.cuda.synchronize()
+            held({n: ("primal", g, r) for n, g, r in zip(("K", "kf", "rhat"), got, ref)})

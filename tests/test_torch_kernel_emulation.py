@@ -1,14 +1,17 @@
-"""The streamed sweeps K8 and K4 (csrc/riccati_packed.cu, csrc/riccati_iter.cu)
-and the dense rollout K9 built as host C++ and run on the CPU
+"""The streamed sweeps K8, K4 and K6 (csrc/riccati_packed.cu,
+csrc/riccati_iter.cu, csrc/riccati_sweep.cu), the dense rollout K9 and the
+linearization K3 (csrc/linearize.cu) built as host C++ and run on the CPU
 (`ndp_nmpc_qd_tpu_torch.emulate`: each CUDA thread a host thread, the
 block's and the lanes' barriers real barriers, tensor copies as plain
 copies), held against their plain versions.
 
 The builds cap the compute threads a block (NDP_K8_THREADS=64,
-NDP_K4_THREADS=64: at most 16 scenarios a block), so B = 23, 24, 27 run two
-blocks, the last ragged. B = 24 takes the tensor copies; at B = 1, 23 and
-27 (not a multiple of the rows' 16 bytes) K8 copies element by element and
-K4 runs its one-thread sweep; each launch's route is checked.
+NDP_K4_THREADS=64, NDP_K6_THREADS=64: at most 16 scenarios a block), so B =
+23, 24, 27 run two blocks, the last ragged. B = 24 takes the tensor copies;
+at B = 1, 23 and 27 (not a multiple of the rows' 16 bytes) K8 copies
+element by element and K4 and K6 run their one-thread sweeps; each launch's
+route is checked. K3 (32 scenarios a block, every stage its own block) runs
+its default build at B = 1 and 23, with and without the forecast.
 One scenario's input is NaN (B > 1): it must stay in that scenario. The
 kernel and the plain version sum in the same order, so they are held within
 1e-6 (`testing.err_of`'s measures; the plain dense sweep contracts with
@@ -31,6 +34,8 @@ N = CFG.ocp.N_node
 CPU = torch.device("cpu")
 K8_BUILD = ("NDP_K8_THREADS=64",)
 K4_BUILD = ("NDP_K4_THREADS=64",)
+K6_BUILD = ("NDP_K6_THREADS=64",)
+PAYLOAD = ("hq", "gx", "gu", "a", "b", "bc", "r")
 TOL = 1e-6
 
 
@@ -131,11 +136,69 @@ def test_glue_sweep_k4_emulated_matches_plain(cxx, jac_bf16, B):
          ("res2", "resid", "res2")), ref)}, nan_b)
 
 
+@pytest.mark.parametrize("B", [1, 23, 24, 27])
+@pytest.mark.parametrize("call", ["lqr_start", "unfused_glue"])
+@pytest.mark.parametrize("jac_bf16", [False, True])
+def test_given_sweep_k6_emulated_matches_plain(cxx, jac_bf16, call, B):
+    """K6 (`riccati_sweep_backward`) in both ways the IPM calls it
+    (`testing.sweep_args`), on both routes."""
+    lib = rs._sweep_lib(emulate.load("riccati_sweep", K6_BUILD))
+    lc = lin_consts(CFG.ocp, CFG.vehicle, True, jac_bf16=jac_bf16)
+    ic = ipm_consts(CFG.ocp, num_iters=3)
+    kw = {k: ic[k] for k in ("h", "diag6_stage", "diag6_term", "rdiag_stage")}
+    qp = linearize.linearize_stage_data_plain(*testing.kernel_inputs(B, N, CPU, 3), **lc)
+    args = [t.clone().contiguous() for t in testing.sweep_args(qp, ic, call)[0][:13]]
+    nan_b = B // 2 if B > 1 else None
+    if nan_b is not None:
+        args[7][4, 2, nan_b] = float("nan")  # zx at node 4
+    out = dict(K=torch.empty(N, 40, B), kf=torch.empty(N, 4, B), rh=torch.empty(N, 10, B))
+    rows = ("zx", "zu", "sig_u", "sig_x", "corr_u", "corr_x")
+    ptrs = rs._SweepPtrs(q=_cuda.QpPtrs(**{n: t.data_ptr() for n, t in zip(PAYLOAD, args)}),
+                         **{n: t.data_ptr() for n, t in zip(rows, args[7:13])},
+                         **{n: t.data_ptr() for n, t in out.items()})
+    emulate.launch(lib.riccati_sweep_backward_launch, jac_bf16, _cuda.step_consts(N, kw), ptrs, B)
+    assert rs.last_sweep_route(lib) == ("tensor copies" if B % 8 == 0 else "one-thread sweep")
+    ref = rs.riccati_sweep_backward_plain(*args, **kw)
+    held({n: ("primal", out[o], r) for (n, o), r in zip(
+        (("K", "K"), ("kf", "kf"), ("rhat", "rh")), ref)}, nan_b)
+
+
+@pytest.mark.parametrize("with_dist", [False, True])
+@pytest.mark.parametrize("jac_bf16", [False, True])
+@pytest.mark.parametrize("B", [1, 23])
+def test_linearization_k3_emulated_matches_plain(cxx, B, jac_bf16, with_dist):
+    """K3 (`linearize_stage_data`): every payload entry written (the outputs
+    start at 7) and equal to the plain version's; a NaN position of one
+    scenario's iterate stays in its gx and r."""
+    lib = linearize._lib(emulate.load("linearize"))
+    lc = lin_consts(CFG.ocp, CFG.vehicle, with_dist, jac_bf16=jac_bf16)
+    ins = [t.clone().contiguous() for t in testing.kernel_inputs(B, N, CPU, 3)]
+    nan_b = B // 2 if B > 1 else None
+    if nan_b is not None:
+        ins[0][4, 2, nan_b] = float("nan")  # xb at node 4
+    jd = torch.bfloat16 if jac_bf16 else torch.float32
+    out = {n: torch.full(s, 7.0, dtype=jd if n in _cuda.JAC_FIELDS else torch.float32)
+           for n, s in _cuda.qp_shapes(N, B).items()}
+    ptrs = linearize._LinPtrs(
+        **{n: t.data_ptr() for n, t in zip(("xb", "ub", "xr", "ur", "x0"), ins[:4] + ins[5:])},
+        fd=ins[4].data_ptr() if with_dist else None,
+        q=_cuda.QpPtrs(**{n: t.data_ptr() for n, t in out.items()}))
+    emulate.launch(lib.linearize_launch, jac_bf16, _cuda.step_consts(N, lc), ptrs, B)
+    ref = linearize.linearize_stage_data_plain(*ins, **lc)
+    held({n: ("primal", out[n], r) for n, r in zip(_cuda.QP_FIELDS, ref)}, nan_b)
+
+
 def test_emulated_geometry_matches_the_python_mirror(cxx):
-    """The default builds' C geometry exports equal `_cuda.sweep_geometry`."""
+    """The default builds' C geometry exports equal `_cuda.sweep_geometry`
+    and `_cuda.lin_geometry`."""
     k8 = emulate.load("riccati_packed")
     k4 = emulate.load("riccati_iter")
+    k6 = emulate.load("riccati_sweep")
+    k3 = emulate.load("linearize")
     for B in (1, 7, 8, 301, 4096, 65535, 65536):
         assert riccati.geometry(B, lib=k8) == _cuda.sweep_geometry("packed", B)
         for jac_bf16 in (False, True):
             assert rs.geometry(B, jac_bf16, lib=k4) == _cuda.sweep_geometry("glue", B, jac_bf16)
+            assert rs.sweep_geometry(B, jac_bf16, lib=k6) == _cuda.sweep_geometry(
+                "given", B, jac_bf16)
+        assert linearize.geometry(B, N, 1, lib=k3) == _cuda.lin_geometry(B, N, 1)

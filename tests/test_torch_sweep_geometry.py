@@ -1,10 +1,14 @@
-"""The launch geometry of the streamed sweeps K8 (dense backward sweep) and K4
-(glue-fused backward sweep): `_cuda.sweep_geometry`, the Python mirror of
-`ndp::k8::geometry` / `ndp::k4::geometry` (held against the C exports on the
-card by chip_smoke.py and on the CPU by test_torch_kernel_emulation.py).
-Every scenario in exactly one slot of one block, a block's shared memory
-within what an H100 block may take, its threads within the kernel's
-launch bounds, and a slot's bytes the sum of the scenario's arrays."""
+"""The launch geometry of the streamed sweeps K8 (dense backward sweep), K4
+(glue-fused backward sweep) and K6 (backward sweep with the row terms
+given), and of the linearization K3: `_cuda.sweep_geometry`, the Python
+mirror of `ndp::k8::geometry` / `ndp::stream::geometry`, and
+`_cuda.lin_geometry`, of `ndp::k3::geometry` (held against the C exports on
+the card by chip_smoke.py and on the CPU by test_torch_kernel_emulation.py).
+Every scenario in exactly one slot of one block (K3: every stage of every
+scenario in one lane of each of its 8 tangent-column warps), a block's
+shared memory within what an H100 block may take, its threads within the
+kernel's launch bounds, and a slot's bytes the sum of the scenario's
+arrays."""
 
 import pytest
 import torch
@@ -14,9 +18,31 @@ from ndp_nmpc_qd_tpu_torch.ops.kernels import _cuda
 SMEM_MAX = 232448  # dynamic shared memory a block may take on sm_90
 
 
-@pytest.mark.parametrize("kind,jac_bf16", [("packed", False), ("glue", False), ("glue", True)])
+N = 20  # stages (OcpParams.N_node)
+
+
+def lin_geometry_covers_every_stage_once(B):
+    """K3: block = tile * (N + 1) + k covers stage k (k = N: the terminal
+    node) of scenarios tile * 32 .. tile * 32 + 31, warp j its column j."""
+    g = _cuda.lin_geometry(B, N)
+    S, T = g["scenarios_per_block"], g["threads_per_scenario"]
+    assert g["threads_per_block"] == S * T and S == 32 and T == 8
+    assert g["smem_bytes_per_block"] == 0
+    block = torch.arange(g["blocks"])
+    tile, k = block // (N + 1), block % (N + 1)
+    b = tile[:, None] * S + torch.arange(S)[None, :]
+    served = (k[:, None] * B + b)[b < B]  # (stage, scenario) pairs
+    assert served.numel() == (N + 1) * B
+    assert torch.equal(served.sort().values, torch.arange((N + 1) * B))
+
+
+@pytest.mark.parametrize("kind,jac_bf16", [("packed", False), ("glue", False), ("glue", True),
+                                           ("given", False), ("given", True), ("lin", False)])
 @pytest.mark.parametrize("B", [1, 7, 301, 65535, 65536])
 def test_sweep_geometry_covers_every_scenario_once(B, kind, jac_bf16):
+    if kind == "lin":
+        lin_geometry_covers_every_stage_once(B)
+        return
     g = _cuda.sweep_geometry(kind, B, jac_bf16)
     k = _cuda.SWEEP_KERNELS[kind]
     S, blocks, T = g["scenarios_per_block"], g["blocks"], g["threads_per_scenario"]
