@@ -3,25 +3,24 @@
 // `ops/pallas/linearize.py:linearize_stage_data` (body `_lin_kernel`).
 //
 // Design: the stages are independent, as the TPU kernel's grid (scenario
-// tiles, stage) computes them, so a block covers one stage k and TILE = 32
-// consecutive scenarios (blocks flat, stage fastest: block = tile * (N + 1)
-// + k), and the node k = N computes the terminal terms, dx0 and the +-big
-// rows of node N (node 0's with stage 0's bounds): the full (N+1, ., B)
-// tensors, which the TPU wrapper concatenated outside its kernel. Warp j
-// owns tangent column j (0-3 the quaternion states, 4-6 the body rates, 7
-// the collective), its lanes consecutive scenarios: each lane carries its
-// column's 10 tangent values through the RK4 step in registers and writes
-// the column's entries of a / b / bc across the warp (coalesced, in the jac
-// dtype). The primal RK4 points, which every column replays, are computed
-// NDP_K3_DESIGN 0: in every warp, beside its column (no shared memory, no
-// barrier); 1: once, by warp 0, and shared through shared memory behind
-// one block barrier; 2 is the one-thread design: a thread per (stage,
-// scenario), all 8 columns in registers by full unrolling. The stage's
-// other terms are split over warps 0-3 (0: hq and the quaternion rows of
-// gx; 1: gx's other rows and gu; 2: the defect r; 3: the bounds). Each
-// column's arithmetic is rk4_tangents' (ndp.cuh, which K1 runs), column by
-// column (rk4_points, rk4_tangent_step), so K1 and K3 compute the same
-// payload up to FMA contraction.
+// tiles, stage) computes them. GROUPS = 8 / G threads share a (stage,
+// scenario), each taking G of its 8 tangent columns (0-3 the quaternion
+// states, 4-6 the body rates, 7 the collective) and replaying the primal
+// RK4 step beside them; a block of 256 threads is GROUPS warps-deep groups
+// of TILE = 32 G consecutive scenarios (group j's threads are whole warps,
+// lanes on consecutive scenarios), and walks KS consecutive stages (blocks
+// flat: block = tile * segments + segment), loading the next stage's iterate
+// while it computes this one. The node k = N computes the terminal terms,
+// dx0 and the +-big rows of node N (node 0's come with stage 0's bounds):
+// the full (N+1, ., B) tensors, which the TPU wrapper concatenated outside
+// its kernel. Each thread carries its columns' 10 tangent values through
+// the RK4 step in registers and writes the columns' entries of a / b / bc
+// across the warp (coalesced, in the jac dtype); the stage's other terms
+// are split over the groups (job 0: hq and the quaternion rows of gx; 1:
+// gx's other rows and gu; 2: the defect r; 3: the bounds). Each column's
+// arithmetic is rk4_tangents' (ndp.cuh, which K1 runs), column by column
+// (rk4_points, rk4_tangent_step), so K1 and K3 compute the same payload up
+// to FMA contraction.
 //
 // What bounds it on this card: bytes. A scenario costs about 59k scalar f32
 // operations (the RK4 step and its 8 tangent columns, ~3k a stage) against
@@ -32,13 +31,15 @@
 //
 // Bound to PyTorch through ctypes: plain C entry points, no PyTorch headers.
 
-#ifndef NDP_K3_DESIGN
-#define NDP_K3_DESIGN 0
+#ifndef NDP_K3_COLS  // tangent columns a thread: 1, 2, 4 or 8
+#define NDP_K3_COLS 1
+#endif
+#ifndef NDP_K3_STAGES  // stages a block walks
+#define NDP_K3_STAGES 1
 #endif
 #ifndef NDP_K3_MIN_BLOCKS  // blocks an SM that __launch_bounds__ asks registers for
 #define NDP_K3_MIN_BLOCKS 1
 #endif
-
 #include "ndp.cuh"
 
 namespace ndp {
@@ -57,20 +58,23 @@ struct LinPtrs {
 
 namespace k3 {
 
-constexpr int COLS = 8;  // tangent columns
-constexpr int TILE = NDP_K3_DESIGN == 2 ? 128 : 32;  // scenarios a block
-constexpr int THREADS = NDP_K3_DESIGN == 2 ? TILE : TILE * COLS;
-constexpr int PTS = 4 * 4;  // the quaternions of a substep's four points
+constexpr int G = NDP_K3_COLS;    // tangent columns a thread
+constexpr int GROUPS = 8 / G;     // threads a (stage, scenario)
+constexpr int THREADS = 256;
+constexpr int TILE = THREADS / GROUPS;  // scenarios a block
+constexpr int KS = NDP_K3_STAGES;       // stages a block
+static_assert(G == 1 || G == 2 || G == 4 || G == 8, "a thread takes 1, 2, 4 or 8 columns");
 
-// Launch geometry: [lanes a scenario-stage, scenarios a block, threads a
-// block, blocks, shared-memory bytes a block].
-inline void geometry(int N, int substeps, long long B, long long* out) {
-  const long long tiles = (B + TILE - 1) / TILE;
-  out[0] = NDP_K3_DESIGN == 2 ? 1 : COLS;
+// Launch geometry: [threads a (stage, scenario), scenarios a block, threads
+// a block, blocks, shared-memory bytes a block, stages a block].
+inline void geometry(int N, long long B, long long* out) {
+  const long long tiles = (B + TILE - 1) / TILE, segments = (N + KS) / KS;
+  out[0] = GROUPS;
   out[1] = TILE;
   out[2] = THREADS;
-  out[3] = tiles * (N + 1);
-  out[4] = NDP_K3_DESIGN == 1 ? 4LL * TILE * PTS * substeps : 0;
+  out[3] = tiles * segments;
+  out[4] = 0;
+  out[5] = KS;
 }
 
 // One scenario's views of the launch's tensors.
@@ -107,11 +111,12 @@ __device__ __forceinline__ void store_column(const Payload<JT>& w, int k, int co
 
 // Stage k's terms besides the tangents (lin_stage_terms and
 // linearize_scenario, same expressions), job 0: hq and gx[6..9]; 1:
-// gx[0..5] and gu; 2: the defect r from the step's end state xn; 3: the
-// bounds. x, u: the stage's iterate.
+// gx[0..5] and gu; 2: the defect r from the step's end state xn and node
+// k+1's iterate x1; 3: the bounds. x, u: the stage's iterate.
 template <typename JT>
 __device__ __forceinline__ void stage_job(int job, const Lane<JT>& s, int k, const float* x,
-                                          const float* u, const float* xn, const StepConsts& c) {
+                                          const float* u, const float* xn, const float* x1,
+                                          const StepConsts& c) {
   const Payload<JT>& w = s.w;
   if (job == 0) {
     float xrq[4], qe[3], hq16[16], gxq[4];
@@ -124,7 +129,7 @@ __device__ __forceinline__ void stage_job(int job, const Lane<JT>& s, int k, con
     for (int i = 0; i < 6; ++i) w.gx(k, i) = c.gx_scale[i] * (x[i] - s.xr(k, i));
     for (int l = 0; l < NU; ++l) w.gu(k, l) = c.gu_scale[l] * (u[l] - s.ur(k, l));
   } else if (job == 2) {
-    for (int i = 0; i < NX; ++i) w.r(k, i) = xn[i] - s.xb(k + 1, i);
+    for (int i = 0; i < NX; ++i) w.r(k, i) = xn[i] - x1[i];
   } else if (job == 3) {
     for (int l = 0; l < NU; ++l) {
       w.lub(k, l) = c.u_lo[l] - u[l];
@@ -174,143 +179,68 @@ __device__ __forceinline__ void load_point(const Lane<JT>& s, int k, float* x, f
 }  // namespace k3
 }  // namespace ndp
 
-#if NDP_K3_DESIGN == 0
-// A warp a tangent column, the primal points in every warp.
 template <typename JT>
 __global__ void __launch_bounds__(ndp::k3::THREADS, NDP_K3_MIN_BLOCKS)
-    linearize_kernel(ndp::LinPtrs p, ndp::StepConsts c, long long B) {
+    linearize_kernel(const __grid_constant__ ndp::LinPtrs p,
+                     const __grid_constant__ ndp::StepConsts c, long long B) {
   using namespace ndp;
   using namespace ndp::k3;
   const int N = c.n_stages;
-  const long long tile = blockIdx.x / (N + 1);
-  const int k = (int)(blockIdx.x - tile * (N + 1));
-  const int col = threadIdx.x / 32;
-  const long long b = tile * TILE + threadIdx.x % 32;
+  const int segments = (N + KS) / KS;
+  const long long tile = blockIdx.x / segments;
+  const int k0 = (int)(blockIdx.x - tile * segments) * KS;
+  const int k1 = k0 + KS < N + 1 ? k0 + KS : N + 1;
+  const int group = threadIdx.x / TILE;  // its columns G group .. G group + G - 1
+  const long long b = tile * TILE + threadIdx.x % TILE;
   if (b >= B) return;
   const Lane<JT> s = lane_at<JT>(p, c, B, b);
-  if (k == N) {
-    terminal_job(col, s, N, c);
-    return;
-  }
   float x[NX], u[NU], fd[3];
-  load_point(s, k, x, u, fd);
-  const float* fdp = s.fd.p ? fd : nullptr;
-  float tx[NX], tu[NU], xs[NX], xn[NX];
-  tangent_seed(col, tx, tu);
-  for (int i = 0; i < NX; ++i) xs[i] = x[i];
-  for (int sub = 0; sub < c.substeps; ++sub) {
-    float x2[NX], x3[NX], x4[NX];
-    rk4_points(xs, u, fdp, c, x2, x3, x4, xn);
-    rk4_tangent_step(xs, x2, x3, x4, u, tu, c, tx);
-    for (int i = 0; i < NX; ++i) xs[i] = xn[i];
-  }
-  store_column(s.w, k, col, tx);
-  stage_job(col, s, k, x, u, xs, c);
-}
-#elif NDP_K3_DESIGN == 1
-// A warp a tangent column, the primal points by warp 0 through shared
-// memory ([substep][point][quaternion row][TILE]).
-template <typename JT>
-__global__ void __launch_bounds__(ndp::k3::THREADS, NDP_K3_MIN_BLOCKS)
-    linearize_kernel(ndp::LinPtrs p, ndp::StepConsts c, long long B) {
-  using namespace ndp;
-  using namespace ndp::k3;
-  extern __shared__ float4 ndp_smem[];
-  float* const pts = reinterpret_cast<float*>(ndp_smem);
-  const int N = c.n_stages;
-  const long long tile = blockIdx.x / (N + 1);
-  const int k = (int)(blockIdx.x - tile * (N + 1));
-  const int col = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long b = tile * TILE + lane;
-  const bool live = b < B;
-  const Lane<JT> s = lane_at<JT>(p, c, B, live ? b : 0);
-  if (k == N) {  // the whole block
-    if (live) terminal_job(col, s, N, c);
-    return;
-  }
-  float x[NX], u[NU], fd[3];
-  if (live) load_point(s, k, x, u, fd);
-  if (col == 0 && live) {
+  if (k0 < N) load_point(s, k0, x, u, fd);
+  for (int k = k0; k < k1; ++k) {
+    if (k == N) {
+      for (int job = group; job < 2; job += GROUPS) terminal_job(job, s, N, c);
+      break;
+    }
+    // node k+1's iterate (the defect's x1) and, where this block takes
+    // stage k+1, its control and force, loaded before stage k's work
+    float xn1[NX], un[NU], fdn[3];
+    for (int i = 0; i < NX; ++i) xn1[i] = s.xb(k + 1, i);
+    const bool more = k + 1 < k1 && k + 1 < N;
+    if (more) {
+      for (int l = 0; l < NU; ++l) un[l] = s.ub(k + 1, l);
+      if (s.fd.p)
+        for (int t = 0; t < 3; ++t) fdn[t] = s.fd(k + 1, t);
+    }
     const float* fdp = s.fd.p ? fd : nullptr;
-    float xs[NX], xn[NX];
+    float T[G][NX], xs[NX];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float tu[NU];
+      tangent_seed(G * group + g, T[g], tu);
+    }
     for (int i = 0; i < NX; ++i) xs[i] = x[i];
     for (int sub = 0; sub < c.substeps; ++sub) {
-      float x2[NX], x3[NX], x4[NX];
+      float x2[NX], x3[NX], x4[NX], xn[NX];
       rk4_points(xs, u, fdp, c, x2, x3, x4, xn);
-      float* const q = pts + sub * PTS * TILE + lane;
-      for (int i = 0; i < 4; ++i) {
-        q[i * TILE] = xs[6 + i];
-        q[(4 + i) * TILE] = x2[6 + i];
-        q[(8 + i) * TILE] = x3[6 + i];
-        q[(12 + i) * TILE] = x4[6 + i];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float t0[NX], tu[NU];
+        tangent_seed(G * group + g, t0, tu);
+        rk4_tangent_step(xs, x2, x3, x4, u, tu, c, T[g]);
       }
       for (int i = 0; i < NX; ++i) xs[i] = xn[i];
     }
-    stage_job(2, s, k, x, u, xs, c);
-  } else if (live && col < 4) {
-    stage_job(col == 2 ? 0 : col, s, k, x, u, nullptr, c);  // jobs 1, 0, 3
-  }
-  __syncthreads();
-  if (!live) return;
-  float tx[NX], tu[NU];
-  tangent_seed(col, tx, tu);
-  for (int sub = 0; sub < c.substeps; ++sub) {
-    float xs[NX], x2[NX], x3[NX], x4[NX];  // f_cont_jvp reads rows 6-9 only
-    const float* const q = pts + sub * PTS * TILE + lane;
-    for (int i = 0; i < 4; ++i) {
-      xs[6 + i] = q[i * TILE];
-      x2[6 + i] = q[(4 + i) * TILE];
-      x3[6 + i] = q[(8 + i) * TILE];
-      x4[6 + i] = q[(12 + i) * TILE];
+#pragma unroll
+    for (int g = 0; g < G; ++g) store_column(s.w, k, G * group + g, T[g]);
+    for (int job = group; job < 4; job += GROUPS) stage_job(job, s, k, x, u, xs, xn1, c);
+    for (int i = 0; i < NX; ++i) x[i] = xn1[i];
+    if (more) {
+      for (int l = 0; l < NU; ++l) u[l] = un[l];
+      if (s.fd.p)
+        for (int t = 0; t < 3; ++t) fd[t] = fdn[t];
     }
-    rk4_tangent_step(xs, x2, x3, x4, u, tu, c, tx);
   }
-  store_column(s.w, k, col, tx);
 }
-#else
-// A thread a (stage, scenario), the 8 columns in registers.
-template <typename JT>
-__global__ void __launch_bounds__(ndp::k3::THREADS, NDP_K3_MIN_BLOCKS)
-    linearize_kernel(ndp::LinPtrs p, ndp::StepConsts c, long long B) {
-  using namespace ndp;
-  using namespace ndp::k3;
-  const int N = c.n_stages;
-  const long long tile = blockIdx.x / (N + 1);
-  const int k = (int)(blockIdx.x - tile * (N + 1));
-  const long long b = tile * TILE + threadIdx.x;
-  if (b >= B) return;
-  const Lane<JT> s = lane_at<JT>(p, c, B, b);
-  if (k == N) {
-    terminal_job(0, s, N, c);
-    terminal_job(1, s, N, c);
-    return;
-  }
-  float x[NX], u[NU], fd[3];
-  load_point(s, k, x, u, fd);
-  const float* fdp = s.fd.p ? fd : nullptr;
-  float T[COLS][NX], xs[NX], xn[NX];
-#pragma unroll
-  for (int col = 0; col < COLS; ++col) {
-    float tu[NU];
-    tangent_seed(col, T[col], tu);
-  }
-  for (int i = 0; i < NX; ++i) xs[i] = x[i];
-  for (int sub = 0; sub < c.substeps; ++sub) {
-    float x2[NX], x3[NX], x4[NX];
-    rk4_points(xs, u, fdp, c, x2, x3, x4, xn);
-#pragma unroll
-    for (int col = 0; col < COLS; ++col) {
-      float tx0[NX], tu[NU];
-      tangent_seed(col, tx0, tu);
-      rk4_tangent_step(xs, x2, x3, x4, u, tu, c, T[col]);
-    }
-    for (int i = 0; i < NX; ++i) xs[i] = xn[i];
-  }
-#pragma unroll
-  for (int col = 0; col < COLS; ++col) store_column(s.w, k, col, T[col]);
-  for (int job = 0; job < 4; ++job) stage_job(job, s, k, x, u, xs, c);
-}
-#endif
 
 extern "C" {
 
@@ -318,17 +248,18 @@ int linearize_consts_size() { return (int)sizeof(ndp::StepConsts); }
 int linearize_ptrs_size() { return (int)sizeof(ndp::LinPtrs); }
 
 // The launch geometry for the ctypes mirror (`linearize.geometry`): out =
-// [lanes a scenario-stage, scenarios a block, threads a block, blocks,
-// shared-memory bytes a block].
-void linearize_geometry(int n_stages, int substeps, long long B, long long* out) {
-  ndp::k3::geometry(n_stages, substeps, B, out);
+// [threads a (stage, scenario), scenarios a block, threads a block, blocks,
+// shared-memory bytes a block, stages a block]; the second argument
+// (substeps) is not read.
+void linearize_geometry(int n_stages, int, long long B, long long* out) {
+  ndp::k3::geometry(n_stages, B, out);
 }
 
 // Launches the linearization on `stream`; returns cudaGetLastError().
 int linearize_launch(int jac_bf16, const ndp::StepConsts* c, const ndp::LinPtrs* p, long long B,
                      void* stream) {
-  long long g[5];
-  ndp::k3::geometry(c->n_stages, c->substeps, B, g);
+  long long g[6];
+  ndp::k3::geometry(c->n_stages, B, g);
   if (B < 1 || c->n_stages < 1 || g[3] >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = (unsigned)g[3];

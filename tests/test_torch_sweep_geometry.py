@@ -22,16 +22,21 @@ N = 20  # stages (OcpParams.N_node)
 
 
 def lin_geometry_covers_every_stage_once(B):
-    """K3: block = tile * (N + 1) + k covers stage k (k = N: the terminal
-    node) of scenarios tile * 32 .. tile * 32 + 31, warp j its column j."""
+    """K3: block = tile * segments + segment covers the stages segment *
+    KS .. segment * KS + KS - 1 (the last ending at the terminal node N) of
+    the tile's scenarios, its groups of threads its 8 tangent columns."""
     g = _cuda.lin_geometry(B, N)
-    S, T = g["scenarios_per_block"], g["threads_per_scenario"]
-    assert g["threads_per_block"] == S * T and S == 32 and T == 8
+    S, T, KS = g["scenarios_per_block"], g["threads_per_scenario"], g["stages_per_block"]
+    assert g["threads_per_block"] == S * T == 256 and 8 % T == 0 and S % 32 == 0
     assert g["smem_bytes_per_block"] == 0
+    segments = -(-(N + 1) // KS)
+    assert g["blocks"] % segments == 0
     block = torch.arange(g["blocks"])
-    tile, k = block // (N + 1), block % (N + 1)
-    b = tile[:, None] * S + torch.arange(S)[None, :]
-    served = (k[:, None] * B + b)[b < B]  # (stage, scenario) pairs
+    tile, seg = block // segments, block % segments
+    k = seg[:, None] * KS + torch.arange(KS)[None, :]  # (block, stage)
+    b = tile[:, None] * S + torch.arange(S)[None, :]  # (block, scenario)
+    pairs = k[:, :, None] * B + b[:, None, :]
+    served = pairs[(k[:, :, None] <= N) & (b[:, None, :] < B)]  # (stage, scenario) pairs
     assert served.numel() == (N + 1) * B
     assert torch.equal(served.sort().values, torch.arange((N + 1) * B))
 

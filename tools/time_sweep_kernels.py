@@ -20,11 +20,11 @@ against this tree.
 3. Times each at B=65536 and 65535 (CUDA events over 20 queued launches),
    K8 on the Newton call, K4, K6 (the clipped-LQR start) and K3 on the bf16
    payload.
-4. `--variants`: K3's other designs (NDP_K3_DESIGN=1, the primal points
-   shared by warp 0; 2, a thread a (stage, scenario)) and K6 with 256
-   compute threads a block and with 8 lanes a scenario, each checked at
-   B=4096 and 65536 and timed at 65536 in turns with the default build on
-   the same tensors.
+4. `--variants [K3|K6]`: K3 with other columns a thread, stages a block
+   and blocks an SM (NDP_K3_COLS, NDP_K3_STAGES, NDP_K3_MIN_BLOCKS) and K6
+   with 256 compute threads a block and with 8 lanes a scenario, each
+   checked at B=4096 and 65536 and timed at 65536 in turns with the
+   default build on the same tensors.
 5. `--clocks`: K8, K4 and K6 built with phase clocks (`NDP_TEAM_CLOCKS`),
    each phase's cycles in block 0's first thread over one launch.
 6. `--parent DIR` (for example an unpacked `git archive` of the parent
@@ -74,10 +74,12 @@ BUILDS = {  # name -> (source, defines)
     "K3": ("linearize", ()),
 }
 VARIANTS = {  # name -> (kernel, source, defines)
-    "K3, primal points shared by warp 0": ("K3", "linearize", ("NDP_K3_DESIGN=1",)),
-    "K3, a thread a (stage, scenario)": ("K3", "linearize", ("NDP_K3_DESIGN=2",)),
-    "K3, at least 3 blocks an SM": ("K3", "linearize", ("NDP_K3_MIN_BLOCKS=3",)),
-    "K3, at least 4 blocks an SM": ("K3", "linearize", ("NDP_K3_MIN_BLOCKS=4",)),
+    **{f"K3, {g} columns a thread, {ks} stages a block{f', {mb} blocks an SM' if mb else ''}": (
+        "K3", "linearize", (f"NDP_K3_COLS={g}", f"NDP_K3_STAGES={ks}")
+        + ((f"NDP_K3_MIN_BLOCKS={mb}",) if mb else ()))
+       for g, ks, mb in ((1, 3, 0), (1, 7, 0), (2, 1, 0), (2, 3, 0), (2, 7, 0), (4, 1, 0),
+                         (4, 3, 0), (4, 7, 0), (8, 1, 0), (8, 3, 0), (8, 7, 0), (8, 21, 0),
+                         (1, 3, 3), (2, 3, 2), (2, 3, 3), (4, 3, 2))},
     "K6, 256 compute threads a block": ("K6", "riccati_sweep", ("NDP_K6_THREADS=256",)),
     "K6, 8 lanes a scenario": ("K6", "riccati_sweep", ("NDP_TEAM=8",)),
 }
@@ -247,13 +249,15 @@ def timing(libs, dev, B=65536, reps=20):
               f"bf16 payload)")
 
 
-def variants(libs, dev, reps=20):
-    """Each variant build checked at B=4096 and 65536, then timed at 65536 in
-    turns with the default build on the same tensors."""
-    vlibs = build_all({name: (src, defines) for name, (_, src, defines) in VARIANTS.items()})
+def variants(libs, dev, which, reps=20):
+    """Each variant build of kernel `which` ("all": every kernel) checked at
+    B=4096 and 65536, then timed at 65536 in turns with the default build on
+    the same tensors."""
+    chosen = {n: v for n, v in VARIANTS.items() if which in ("all", v[0])}
+    vlibs = build_all({name: (src, defines) for name, (_, src, defines) in chosen.items()})
     for B in (4096, 65536):
         ins = inputs(B, dev)
-        for name, (kernel, _, _) in VARIANTS.items():
+        for name, (kernel, _, _) in chosen.items():
             lib = vlibs[name]
             if kernel == "K3":
                 for tag, args in ins["K3"].items():
@@ -265,7 +269,7 @@ def variants(libs, dev, reps=20):
                 print(f"{name}: geometry (B={B}, bf16) {g}")
         if B == 65536:
             base = runs(libs, ins)
-            for name, (kernel, _, _) in VARIANTS.items():
+            for name, (kernel, _, _) in chosen.items():
                 var = runs({**libs, kernel: vlibs[name]}, ins)[kernel]
                 ts = {}
                 for key, fn in (("default", base[kernel]), (name, var), (name, var),
@@ -457,7 +461,8 @@ def main():
     ap.add_argument("--parent", help="the other checkout (B) for the comparisons with it")
     ap.add_argument("--sass", help="write the default builds' SASS into this directory")
     ap.add_argument("--clocks", action="store_true", help="also the phase cycles of K8, K4, K6")
-    ap.add_argument("--variants", action="store_true", help="also K3's and K6's variant builds")
+    ap.add_argument("--variants", nargs="?", const="all",
+                    help="also the variant builds of K3 and K6 (or of the one named)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -480,7 +485,7 @@ def main():
         check(libs, dev)
         timing(libs, dev)
         if args.variants:
-            variants(libs, dev)
+            variants(libs, dev, args.variants)
         if args.clocks:
             clocks(dev)
         if args.parent:
