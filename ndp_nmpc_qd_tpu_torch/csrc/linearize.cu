@@ -3,43 +3,40 @@
 // `ops/pallas/linearize.py:linearize_stage_data` (body `_lin_kernel`).
 //
 // Design: the stages are independent, as the TPU kernel's grid (scenario
-// tiles, stage) computes them. GROUPS = 8 / G threads share a (stage,
-// scenario), each taking G of its 8 tangent columns (0-3 the quaternion
-// states, 4-6 the body rates, 7 the collective) and replaying the primal
-// RK4 step beside them; a block of 256 threads is GROUPS warps-deep groups
-// of TILE = 32 G consecutive scenarios (group j's threads are whole warps,
-// lanes on consecutive scenarios), and walks KS consecutive stages (blocks
-// flat: block = tile * segments + segment), loading the next stage's iterate
-// while it computes this one. The node k = N computes the terminal terms,
-// dx0 and the +-big rows of node N (node 0's come with stage 0's bounds):
-// the full (N+1, ., B) tensors, which the TPU wrapper concatenated outside
-// its kernel. Each thread carries its columns' 10 tangent values through
-// the RK4 step in registers and writes the columns' entries of a / b / bc
-// across the warp (coalesced, in the jac dtype); the stage's other terms
-// are split over the groups (job 0: hq and the quaternion rows of gx; 1:
-// gx's other rows and gu; 2: the defect r; 3: the bounds). Each column's
-// arithmetic is rk4_tangents' (ndp.cuh, which K1 runs), column by column
-// (rk4_points, rk4_tangent_step), so K1 and K3 compute the same payload up
-// to FMA contraction.
+// tiles, stage) computes them, so a thread takes one (stage, scenario): a
+// block covers one stage k and THREADS consecutive scenarios (blocks flat,
+// stage fastest: block = tile * (N + 1) + k), and the node k = N computes
+// the terminal terms, dx0 and the +-big rows of node N (node 0's come with
+// stage 0's bounds): the full (N+1, ., B) tensors, which the TPU wrapper
+// concatenated outside its kernel. The thread computes the primal RK4
+// points once, then walks the 8 tangent columns (0-3 the quaternion states,
+// 4-6 the body rates, 7 the collective) in a loop, U at a time: each
+// column's 10 tangent values live in registers from its seed to its store
+// (no array indexed by a runtime value, so nothing goes to local memory),
+// and the loop keeps the code small. Later substeps (substeps > 1) replay
+// the primal chain for each column. Each column's arithmetic is
+// rk4_tangents' (ndp.cuh, which K1 runs), column by column (rk4_points,
+// rk4_tangent_step), so K1 and K3 compute the same payload up to FMA
+// contraction.
 //
 // What bounds it on this card: bytes. A scenario costs about 59k scalar f32
 // operations (the RK4 step and its 8 tangent columns, ~3k a stage) against
 // about 9.7 KB of inputs read and payload written (bf16 curvature): at
 // B=65536, ~0.19 ms of memory traffic against ~0.06 ms of arithmetic. Every
-// load and store is coalesced across the warp (batch innermost), and no
-// array is indexed by a runtime value, so nothing goes to local memory.
+// load and store is coalesced across the warp (batch innermost).
 //
 // Bound to PyTorch through ctypes: plain C entry points, no PyTorch headers.
 
-#ifndef NDP_K3_COLS  // tangent columns a thread: 1, 2, 4 or 8
-#define NDP_K3_COLS 1
+#ifndef NDP_K3_UNROLL  // tangent columns a thread computes together: 1, 2, 4 or 8
+#define NDP_K3_UNROLL 1
 #endif
-#ifndef NDP_K3_STAGES  // stages a block walks
-#define NDP_K3_STAGES 1
+#ifndef NDP_K3_THREADS  // threads (scenarios) a block
+#define NDP_K3_THREADS 128
 #endif
 #ifndef NDP_K3_MIN_BLOCKS  // blocks an SM that __launch_bounds__ asks registers for
 #define NDP_K3_MIN_BLOCKS 1
 #endif
+
 #include "ndp.cuh"
 
 namespace ndp {
@@ -58,188 +55,172 @@ struct LinPtrs {
 
 namespace k3 {
 
-constexpr int G = NDP_K3_COLS;    // tangent columns a thread
-constexpr int GROUPS = 8 / G;     // threads a (stage, scenario)
-constexpr int THREADS = 256;
-constexpr int TILE = THREADS / GROUPS;  // scenarios a block
-constexpr int KS = NDP_K3_STAGES;       // stages a block
-static_assert(G == 1 || G == 2 || G == 4 || G == 8, "a thread takes 1, 2, 4 or 8 columns");
+constexpr int COLS = 8;                 // tangent columns
+constexpr int U = NDP_K3_UNROLL;        // columns a thread computes together
+constexpr int THREADS = NDP_K3_THREADS;  // scenarios a block
+static_assert(COLS % U == 0, "U divides the 8 columns");
 
 // Launch geometry: [threads a (stage, scenario), scenarios a block, threads
-// a block, blocks, shared-memory bytes a block, stages a block].
+// a block, blocks, shared-memory bytes a block].
 inline void geometry(int N, long long B, long long* out) {
-  const long long tiles = (B + TILE - 1) / TILE, segments = (N + KS) / KS;
-  out[0] = GROUPS;
-  out[1] = TILE;
+  out[0] = 1;
+  out[1] = THREADS;
   out[2] = THREADS;
-  out[3] = tiles * segments;
+  out[3] = (B + THREADS - 1) / THREADS * (N + 1);
   out[4] = 0;
-  out[5] = KS;
 }
 
-// One scenario's views of the launch's tensors.
-template <typename JT>
-struct Lane {
-  View<const float> xb, ub, xr, ur, fd, x0;
-  Payload<JT> w;
+// Element (k, i) of the thread's scenario of a (stage, d, B) tensor at p,
+// addressed from the kernel's parameters (no pointer held a tensor).
+struct Elem {
+  long long B, b;
+  template <typename T>
+  __device__ __forceinline__ T& operator()(T* p, int d, int k, int i) const {
+    return p[((long long)k * d + i) * B + b];
+  }
 };
 
 template <typename JT>
-__device__ __forceinline__ Lane<JT> lane_at(const LinPtrs& p, const StepConsts& c, long long B,
-                                            long long b) {
-  return Lane<JT>{at(p.xb, NX, B, b), at(p.ub, NU, B, b), at(p.xr, NX, B, b),
-                  at(p.ur, NU, B, b), at(c.with_dist ? p.fd : nullptr, 3, B, b),
-                  at(p.x0, NX, B, b), payload_at<JT>(p.q, B, b)};
-}
+__device__ __forceinline__ JT* jac(void* p) { return static_cast<JT*>(p); }
 
-// Tangent column `col` of stage k into the payload (lin_stage_terms' scatter).
+// Tangent column `col` of stage k into the payload (lin_stage_terms'
+// scatter; the collective column's quaternion rows, which are zero, are
+// not stored).
 template <typename JT>
-__device__ __forceinline__ void store_column(const Payload<JT>& w, int k, int col,
+__device__ __forceinline__ void store_column(const LinPtrs& p, const Elem& e, int k, int col,
                                              const float* tx) {
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    int field;
-    const int j = column_slot(col, i, field);
-    if (field == 0)
-      w.a(k, j) = stf<JT>(tx[i]);
-    else if (field == 1)
-      w.b(k, j) = stf<JT>(tx[i]);
-    else if (j >= 0)
-      w.bc(k, j) = tx[i];
+  if (col < 4) {
+    for (int i = 0; i < 3; ++i) {
+      e(jac<JT>(p.q.a), 40, k, i * 4 + col) = stf<JT>(tx[i]);            // Apq
+      e(jac<JT>(p.q.a), 40, k, 12 + i * 4 + col) = stf<JT>(tx[3 + i]);   // Avq
+    }
+    for (int i = 0; i < 4; ++i) e(jac<JT>(p.q.a), 40, k, 24 + i * 4 + col) = stf<JT>(tx[6 + i]);
+  } else if (col < 7) {
+    const int l = col - 4;
+    for (int i = 0; i < 3; ++i) {
+      e(jac<JT>(p.q.b), 30, k, i * 3 + l) = stf<JT>(tx[i]);              // Bp
+      e(jac<JT>(p.q.b), 30, k, 9 + i * 3 + l) = stf<JT>(tx[3 + i]);      // Bv
+    }
+    for (int i = 0; i < 4; ++i) e(jac<JT>(p.q.b), 30, k, 18 + i * 3 + l) = stf<JT>(tx[6 + i]);
+  } else {
+    for (int i = 0; i < 6; ++i) e(p.q.bc, 6, k, i) = tx[i];  // collective columns stay f32
   }
 }
 
 // Stage k's terms besides the tangents (lin_stage_terms and
-// linearize_scenario, same expressions), job 0: hq and gx[6..9]; 1:
-// gx[0..5] and gu; 2: the defect r from the step's end state xn and node
-// k+1's iterate x1; 3: the bounds. x, u: the stage's iterate.
+// linearize_scenario, same expressions): hq and gx, gu, the defect r from
+// the step's end state xe, the bounds. x, u: the stage's iterate.
 template <typename JT>
-__device__ __forceinline__ void stage_job(int job, const Lane<JT>& s, int k, const float* x,
-                                          const float* u, const float* xn, const float* x1,
-                                          const StepConsts& c) {
-  const Payload<JT>& w = s.w;
-  if (job == 0) {
-    float xrq[4], qe[3], hq16[16], gxq[4];
-    for (int i = 0; i < 4; ++i) xrq[i] = s.xr(k, 6 + i);
-    qe_tiles(x + 6, xrq, qe);
-    hq_gxq_tiles(xrq, qe, c.q_diag + 7, hq16, gxq);
-    for (int j = 0; j < 16; ++j) w.hq(k, j) = stf<JT>(c.stage_scale * hq16[j]);
-    for (int i = 0; i < 4; ++i) w.gx(k, 6 + i) = c.stage_scale * gxq[i];
-  } else if (job == 1) {
-    for (int i = 0; i < 6; ++i) w.gx(k, i) = c.gx_scale[i] * (x[i] - s.xr(k, i));
-    for (int l = 0; l < NU; ++l) w.gu(k, l) = c.gu_scale[l] * (u[l] - s.ur(k, l));
-  } else if (job == 2) {
-    for (int i = 0; i < NX; ++i) w.r(k, i) = xn[i] - x1[i];
-  } else if (job == 3) {
-    for (int l = 0; l < NU; ++l) {
-      w.lub(k, l) = c.u_lo[l] - u[l];
-      w.uub(k, l) = c.u_hi[l] - u[l];
-    }
-    for (int t = 0; t < 3; ++t) {
-      w.lxb(k, t) = k == 0 ? -c.big : c.v_lo[t] - x[3 + t];
-      w.uxb(k, t) = k == 0 ? c.big : c.v_hi[t] - x[3 + t];
-    }
+__device__ __forceinline__ void stage_terms(const LinPtrs& p, const Elem& e, int k,
+                                            const float* x, const float* u, const float* xe,
+                                            const StepConsts& c) {
+  float xrq[4], qe[3], hq16[16], gxq[4];
+  for (int i = 0; i < 4; ++i) xrq[i] = e(p.xr, NX, k, 6 + i);
+  qe_tiles(x + 6, xrq, qe);
+  hq_gxq_tiles(xrq, qe, c.q_diag + 7, hq16, gxq);
+  for (int j = 0; j < 16; ++j) e(jac<JT>(p.q.hq), 16, k, j) = stf<JT>(c.stage_scale * hq16[j]);
+  for (int i = 0; i < 6; ++i) e(p.q.gx, NX, k, i) = c.gx_scale[i] * (x[i] - e(p.xr, NX, k, i));
+  for (int i = 0; i < 4; ++i) e(p.q.gx, NX, k, 6 + i) = c.stage_scale * gxq[i];
+  for (int l = 0; l < NU; ++l) e(p.q.gu, NU, k, l) = c.gu_scale[l] * (u[l] - e(p.ur, NU, k, l));
+  for (int i = 0; i < NX; ++i) e(p.q.r, NX, k, i) = xe[i] - e(p.xb, NX, k + 1, i);
+  for (int l = 0; l < NU; ++l) {
+    e(p.q.lub, NU, k, l) = c.u_lo[l] - u[l];
+    e(p.q.uub, NU, k, l) = c.u_hi[l] - u[l];
+  }
+  for (int t = 0; t < 3; ++t) {
+    e(p.q.lxb, 3, k, t) = k == 0 ? -c.big : c.v_lo[t] - x[3 + t];
+    e(p.q.uxb, 3, k, t) = k == 0 ? c.big : c.v_hi[t] - x[3 + t];
   }
 }
 
-// The terminal node's terms (linearize_scenario's tail), job 0: hq, gx; 1:
-// dx0 and the +-big rows of node N.
+// The terminal node's terms (linearize_scenario's tail): hq, gx, dx0 and
+// the +-big rows of node N.
 template <typename JT>
-__device__ __forceinline__ void terminal_job(int job, const Lane<JT>& s, int N,
-                                             const StepConsts& c) {
-  const Payload<JT>& w = s.w;
-  if (job == 0) {
-    float x1T[NX], xrT[NX], hqT[16], gxT[NX];
-    for (int i = 0; i < NX; ++i) {
-      x1T[i] = s.xb(N, i);
-      xrT[i] = s.xr(N, i);
-    }
-    lin_terminal_terms(x1T, xrT, c, hqT, gxT);
-    for (int j = 0; j < 16; ++j) w.hq(N, j) = stf<JT>(hqT[j]);
-    for (int i = 0; i < NX; ++i) w.gx(N, i) = gxT[i];
-  } else if (job == 1) {
-    for (int i = 0; i < NX; ++i) w.dx0(0, i) = s.x0(0, i) - s.xb(0, i);
-    for (int t = 0; t < 3; ++t) {
-      w.lxb(N, t) = -c.big;
-      w.uxb(N, t) = c.big;
-    }
+__device__ __forceinline__ void terminal_terms(const LinPtrs& p, const Elem& e, int N,
+                                               const StepConsts& c) {
+  float x1T[NX], xrT[NX], hqT[16], gxT[NX];
+  for (int i = 0; i < NX; ++i) {
+    x1T[i] = e(p.xb, NX, N, i);
+    xrT[i] = e(p.xr, NX, N, i);
   }
-}
-
-// The stage's iterate and forecast force.
-template <typename JT>
-__device__ __forceinline__ void load_point(const Lane<JT>& s, int k, float* x, float* u,
-                                           float* fd) {
-  for (int i = 0; i < NX; ++i) x[i] = s.xb(k, i);
-  for (int l = 0; l < NU; ++l) u[l] = s.ub(k, l);
-  if (s.fd.p)
-    for (int t = 0; t < 3; ++t) fd[t] = s.fd(k, t);
+  lin_terminal_terms(x1T, xrT, c, hqT, gxT);
+  for (int j = 0; j < 16; ++j) e(jac<JT>(p.q.hq), 16, N, j) = stf<JT>(hqT[j]);
+  for (int i = 0; i < NX; ++i) {
+    e(p.q.gx, NX, N, i) = gxT[i];
+    e(p.q.dx0, NX, 0, i) = e(p.x0, NX, 0, i) - e(p.xb, NX, 0, i);
+  }
+  for (int t = 0; t < 3; ++t) {
+    e(p.q.lxb, 3, N, t) = -c.big;
+    e(p.q.uxb, 3, N, t) = c.big;
+  }
 }
 
 }  // namespace k3
 }  // namespace ndp
 
-template <typename JT>
+// REPLAY: built for substeps > 1, where each column replays the later
+// substeps' primal points; substeps == 1 (the configuration in use) runs
+// without that code, and its registers.
+template <typename JT, bool REPLAY>
 __global__ void __launch_bounds__(ndp::k3::THREADS, NDP_K3_MIN_BLOCKS)
     linearize_kernel(const __grid_constant__ ndp::LinPtrs p,
                      const __grid_constant__ ndp::StepConsts c, long long B) {
   using namespace ndp;
   using namespace ndp::k3;
   const int N = c.n_stages;
-  const int segments = (N + KS) / KS;
-  const long long tile = blockIdx.x / segments;
-  const int k0 = (int)(blockIdx.x - tile * segments) * KS;
-  const int k1 = k0 + KS < N + 1 ? k0 + KS : N + 1;
-  const int group = threadIdx.x / TILE;  // its columns G group .. G group + G - 1
-  const long long b = tile * TILE + threadIdx.x % TILE;
-  if (b >= B) return;
-  const Lane<JT> s = lane_at<JT>(p, c, B, b);
+  const long long tile = blockIdx.x / (N + 1);
+  const int k = (int)(blockIdx.x - tile * (N + 1));
+  const Elem e{B, tile * THREADS + threadIdx.x};
+  if (e.b >= B) return;
+  if (k == N) {
+    terminal_terms<JT>(p, e, N, c);
+    return;
+  }
   float x[NX], u[NU], fd[3];
-  if (k0 < N) load_point(s, k0, x, u, fd);
-  for (int k = k0; k < k1; ++k) {
-    if (k == N) {
-      for (int job = group; job < 2; job += GROUPS) terminal_job(job, s, N, c);
-      break;
+  for (int i = 0; i < NX; ++i) x[i] = e(p.xb, NX, k, i);
+  for (int l = 0; l < NU; ++l) u[l] = e(p.ub, NU, k, l);
+  if (c.with_dist)
+    for (int t = 0; t < 3; ++t) fd[t] = e(p.fd, 3, k, t);
+  const float* fdp = c.with_dist ? fd : nullptr;
+  // the primal step: the first substep's points, its end state x1s, and the
+  // end state xe after every substep
+  float x2[NX], x3[NX], x4[NX], x1s[NX], xe[NX];
+  rk4_points(x, u, fdp, c, x2, x3, x4, x1s);
+  for (int i = 0; i < NX; ++i) xe[i] = x1s[i];
+  if (REPLAY)
+    for (int sub = 1; sub < c.substeps; ++sub) {
+      float y2[NX], y3[NX], y4[NX], yn[NX];
+      rk4_points(xe, u, fdp, c, y2, y3, y4, yn);
+      for (int i = 0; i < NX; ++i) xe[i] = yn[i];
     }
-    // node k+1's iterate (the defect's x1) and, where this block takes
-    // stage k+1, its control and force, loaded before stage k's work
-    float xn1[NX], un[NU], fdn[3];
-    for (int i = 0; i < NX; ++i) xn1[i] = s.xb(k + 1, i);
-    const bool more = k + 1 < k1 && k + 1 < N;
-    if (more) {
-      for (int l = 0; l < NU; ++l) un[l] = s.ub(k + 1, l);
-      if (s.fd.p)
-        for (int t = 0; t < 3; ++t) fdn[t] = s.fd(k + 1, t);
-    }
-    const float* fdp = s.fd.p ? fd : nullptr;
-    float T[G][NX], xs[NX];
+#pragma unroll 1
+  for (int c0 = 0; c0 < COLS; c0 += U) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float tu[NU];
-      tangent_seed(G * group + g, T[g], tu);
-    }
-    for (int i = 0; i < NX; ++i) xs[i] = x[i];
-    for (int sub = 0; sub < c.substeps; ++sub) {
-      float x2[NX], x3[NX], x4[NX], xn[NX];
-      rk4_points(xs, u, fdp, c, x2, x3, x4, xn);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float t0[NX], tu[NU];
-        tangent_seed(G * group + g, t0, tu);
-        rk4_tangent_step(xs, x2, x3, x4, u, tu, c, T[g]);
+    for (int j = 0; j < U; ++j) {
+      float tx[NX], tu[NU];
+      tangent_seed(c0 + j, tx, tu);
+      rk4_tangent_step(x, x2, x3, x4, u, tu, c, tx);
+      if (REPLAY) {  // the later substeps, their points replayed for this column
+        float xa[NX];
+        for (int i = 0; i < NX; ++i) xa[i] = x1s[i];
+        for (int sub = 1; sub < c.substeps; ++sub) {
+          float y2[NX], y3[NX], y4[NX], yn[NX];
+          rk4_points(xa, u, fdp, c, y2, y3, y4, yn);
+          rk4_tangent_step(xa, y2, y3, y4, u, tu, c, tx);
+          for (int i = 0; i < NX; ++i) xa[i] = yn[i];
+        }
       }
-      for (int i = 0; i < NX; ++i) xs[i] = xn[i];
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) store_column(s.w, k, G * group + g, T[g]);
-    for (int job = group; job < 4; job += GROUPS) stage_job(job, s, k, x, u, xs, xn1, c);
-    for (int i = 0; i < NX; ++i) x[i] = xn1[i];
-    if (more) {
-      for (int l = 0; l < NU; ++l) u[l] = un[l];
-      if (s.fd.p)
-        for (int t = 0; t < 3; ++t) fd[t] = fdn[t];
+      store_column<JT>(p, e, k, c0 + j, tx);
     }
   }
+  stage_terms<JT>(p, e, k, x, u, xe, c);
+}
+
+template <typename JT>
+static void launch_t(const ndp::LinPtrs& p, const ndp::StepConsts& c, long long B,
+                     unsigned blocks, cudaStream_t s) {
+  const auto kern = c.substeps > 1 ? linearize_kernel<JT, true> : linearize_kernel<JT, false>;
+  NDP_LAUNCH(kern, blocks, ndp::k3::THREADS, 0, s, p, c, B);
 }
 
 extern "C" {
@@ -249,8 +230,8 @@ int linearize_ptrs_size() { return (int)sizeof(ndp::LinPtrs); }
 
 // The launch geometry for the ctypes mirror (`linearize.geometry`): out =
 // [threads a (stage, scenario), scenarios a block, threads a block, blocks,
-// shared-memory bytes a block, stages a block]; the second argument
-// (substeps) is not read.
+// shared-memory bytes a block]; the second argument (substeps) is not
+// read.
 void linearize_geometry(int n_stages, int, long long B, long long* out) {
   ndp::k3::geometry(n_stages, B, out);
 }
@@ -258,16 +239,14 @@ void linearize_geometry(int n_stages, int, long long B, long long* out) {
 // Launches the linearization on `stream`; returns cudaGetLastError().
 int linearize_launch(int jac_bf16, const ndp::StepConsts* c, const ndp::LinPtrs* p, long long B,
                      void* stream) {
-  long long g[6];
+  long long g[5];
   ndp::k3::geometry(c->n_stages, B, g);
   if (B < 1 || c->n_stages < 1 || g[3] >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = (unsigned)g[3];
-  const int threads = (int)g[2], smem = (int)g[4];
   if (jac_bf16)
-    NDP_LAUNCH(linearize_kernel<__nv_bfloat16>, blocks, threads, smem, s, *p, *c, B);
+    launch_t<__nv_bfloat16>(*p, *c, B, (unsigned)g[3], s);
   else
-    NDP_LAUNCH(linearize_kernel<float>, blocks, threads, smem, s, *p, *c, B);
+    launch_t<float>(*p, *c, B, (unsigned)g[3], s);
   return (int)cudaGetLastError();
 }
 

@@ -559,24 +559,6 @@ __device__ __forceinline__ void rk4_tangent_step(const float* x, const float* x2
   for (int i = 0; i < NX; ++i)
     tx[i] = tx[i] + c.rk_sixth * (t1[i] + 2.0f * t2[i] + 2.0f * t3[i] + t4[i]);
 }
-// Where tangent column `col` goes in the stage's payload (lin_stage_terms'
-// scatter): entry i of the column to a40 / b30 / bc6 at the returned
-// offset, -1 where the column's row is not stored (the collective column's
-// quaternion rows, which are zero). Field: 0 a, 1 b, 2 bc.
-__device__ __forceinline__ int column_slot(int col, int i, int& field) {
-  if (col < 4) {
-    field = 0;
-    return i < 3 ? i * 4 + col : i < 6 ? 12 + (i - 3) * 4 + col : 24 + (i - 6) * 4 + col;
-  }
-  if (col < 7) {
-    const int l = col - 4;
-    field = 1;
-    return i < 3 ? i * 3 + l : i < 6 ? 9 + (i - 3) * 3 + l : 18 + (i - 6) * 3 + l;
-  }
-  field = 2;
-  return i < 6 ? i : -1;
-}
-
 // Quaternion tracking error (ops/quat.py:error_vector).
 __device__ inline void qe_tiles(const float* q, const float* qr, float* qe) {
   const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];

@@ -304,24 +304,18 @@ def sweep_geometry(kind: str, B: int, jac_bf16: bool = False) -> dict:
 
 
 # ---- the linearization's launch geometry (K3, csrc/linearize.cu, ndp::k3):
-# 8 / LIN_COLS threads a (stage, scenario), each LIN_COLS tangent columns; a
-# block of 256 threads covers 32 LIN_COLS scenarios and walks LIN_STAGES
-# stages (the terminal node the last); no shared memory ----
+# a thread a (stage, scenario), a block a stage of LIN_THREADS consecutive
+# scenarios (the terminal node the last); no shared memory ----
 
-LIN_COLS = 1  # NDP_K3_COLS as built by default
-LIN_STAGES = 1  # NDP_K3_STAGES
-LIN_THREADS = 256
+LIN_THREADS = 128  # NDP_K3_THREADS as built by default
 
 
 def lin_geometry(B: int, n_stages: int, substeps: int = 1) -> dict:
     """Launch geometry of K3 for B scenarios, as `ndp::k3::geometry`
     computes it: threads a (stage, scenario), scenarios a block, threads a
-    block, blocks (a tile of scenarios by a segment of stages), shared
-    memory a block, stages a block; `substeps` does not change it."""
-    groups = 8 // LIN_COLS
-    tile = LIN_THREADS // groups
+    block, blocks (a tile of scenarios by a stage), shared memory a block;
+    `substeps` does not change it."""
     return dict(
-        threads_per_scenario=groups, scenarios_per_block=tile, threads_per_block=LIN_THREADS,
-        blocks=-(-B // tile) * -(-(n_stages + 1) // LIN_STAGES), smem_bytes_per_block=0,
-        stages_per_block=LIN_STAGES,
+        threads_per_scenario=1, scenarios_per_block=LIN_THREADS, threads_per_block=LIN_THREADS,
+        blocks=-(-B // LIN_THREADS) * (n_stages + 1), smem_bytes_per_block=0,
     )

@@ -342,13 +342,13 @@ def _lib(lib=None):
 
 
 GEOMETRY_KEYS = ("threads_per_scenario", "scenarios_per_block", "threads_per_block", "blocks",
-                 "smem_bytes_per_block", "stages_per_block")
+                 "smem_bytes_per_block")
 
 
 def geometry(B: int, n_stages: int, substeps: int = 1, lib=None) -> dict:
     """K3's launch geometry as its library computes it (mirrored by
     `_cuda.lin_geometry`): threads a (stage, scenario), scenarios a block,
-    threads a block, blocks, shared memory a block, stages a block."""
+    threads a block, blocks, shared memory a block."""
     out = (ctypes.c_longlong * len(GEOMETRY_KEYS))()
     _lib(lib).linearize_geometry(n_stages, substeps, B, out)
     return dict(zip(GEOMETRY_KEYS, out))

@@ -5,7 +5,7 @@ mirror of `ndp::k8::geometry` / `ndp::stream::geometry`, and
 `_cuda.lin_geometry`, of `ndp::k3::geometry` (held against the C exports on
 the card by chip_smoke.py and on the CPU by test_torch_kernel_emulation.py).
 Every scenario in exactly one slot of one block (K3: every stage of every
-scenario in one lane of each of its 8 tangent-column warps), a block's
+scenario in one thread), a block's
 shared memory within what an H100 block may take, its threads within the
 kernel's launch bounds, and a slot's bytes the sum of the scenario's
 arrays."""
@@ -22,21 +22,16 @@ N = 20  # stages (OcpParams.N_node)
 
 
 def lin_geometry_covers_every_stage_once(B):
-    """K3: block = tile * segments + segment covers the stages segment *
-    KS .. segment * KS + KS - 1 (the last ending at the terminal node N) of
-    the tile's scenarios, its groups of threads its 8 tangent columns."""
+    """K3: block = tile * (N + 1) + k covers stage k (k = N: the terminal
+    node) of the tile's scenarios, a thread each."""
     g = _cuda.lin_geometry(B, N)
-    S, T, KS = g["scenarios_per_block"], g["threads_per_scenario"], g["stages_per_block"]
-    assert g["threads_per_block"] == S * T == 256 and 8 % T == 0 and S % 32 == 0
+    S = g["scenarios_per_block"]
+    assert g["threads_per_block"] == S and g["threads_per_scenario"] == 1 and S % 32 == 0
     assert g["smem_bytes_per_block"] == 0
-    segments = -(-(N + 1) // KS)
-    assert g["blocks"] % segments == 0
     block = torch.arange(g["blocks"])
-    tile, seg = block // segments, block % segments
-    k = seg[:, None] * KS + torch.arange(KS)[None, :]  # (block, stage)
-    b = tile[:, None] * S + torch.arange(S)[None, :]  # (block, scenario)
-    pairs = k[:, :, None] * B + b[:, None, :]
-    served = pairs[(k[:, :, None] <= N) & (b[:, None, :] < B)]  # (stage, scenario) pairs
+    tile, k = block // (N + 1), block % (N + 1)
+    b = tile[:, None] * S + torch.arange(S)[None, :]
+    served = (k[:, None] * B + b)[b < B]  # (stage, scenario) pairs
     assert served.numel() == (N + 1) * B
     assert torch.equal(served.sort().values, torch.arange((N + 1) * B))
 

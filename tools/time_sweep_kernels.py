@@ -20,8 +20,9 @@ against this tree.
 3. Times each at B=65536 and 65535 (CUDA events over 20 queued launches),
    K8 on the Newton call, K4, K6 (the clipped-LQR start) and K3 on the bf16
    payload.
-4. `--variants [K3|K6]`: K3 with other columns a thread, stages a block
-   and blocks an SM (NDP_K3_COLS, NDP_K3_STAGES, NDP_K3_MIN_BLOCKS) and K6
+4. `--variants [K3|K6]`: K3 with other columns computed together, threads
+   a block and blocks an SM (NDP_K3_UNROLL, NDP_K3_THREADS,
+   NDP_K3_MIN_BLOCKS) and K6
    with 256 compute threads a block and with 8 lanes a scenario, each
    checked at B=4096 and 65536 and timed at 65536 in turns with the
    default build on the same tensors.
@@ -74,12 +75,11 @@ BUILDS = {  # name -> (source, defines)
     "K3": ("linearize", ()),
 }
 VARIANTS = {  # name -> (kernel, source, defines)
-    **{f"K3, {g} columns a thread, {ks} stages a block{f', {mb} blocks an SM' if mb else ''}": (
-        "K3", "linearize", (f"NDP_K3_COLS={g}", f"NDP_K3_STAGES={ks}")
+    **{f"K3, {u} columns together, {t} threads a block{f', {mb} blocks an SM' if mb else ''}": (
+        "K3", "linearize", (f"NDP_K3_UNROLL={u}", f"NDP_K3_THREADS={t}")
         + ((f"NDP_K3_MIN_BLOCKS={mb}",) if mb else ()))
-       for g, ks, mb in ((1, 3, 0), (1, 7, 0), (2, 1, 0), (2, 3, 0), (2, 7, 0), (4, 1, 0),
-                         (4, 3, 0), (4, 7, 0), (8, 1, 0), (8, 3, 0), (8, 7, 0), (8, 21, 0),
-                         (1, 3, 3), (2, 3, 2), (2, 3, 3), (4, 3, 2))},
+       for u, t, mb in ((2, 128, 0), (4, 128, 0), (8, 128, 0), (1, 256, 0), (1, 64, 0),
+                        (1, 128, 3), (1, 128, 4), (2, 128, 3), (2, 128, 4))},
     "K6, 256 compute threads a block": ("K6", "riccati_sweep", ("NDP_K6_THREADS=256",)),
     "K6, 8 lanes a scenario": ("K6", "riccati_sweep", ("NDP_TEAM=8",)),
 }
