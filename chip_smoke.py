@@ -10,8 +10,8 @@ Phases, one line each; any failure exits non-zero before the last line:
    together), with ptxas' registers, stack and spills per kernel, and for
    K1, K2 (a team of lanes a scenario, the whole horizon in shared memory),
    K8, K4, K6 (a team of lanes a scenario, one stage at a time in shared
-   memory) and K3 (a warp a tangent column, a block a stage of 32
-   scenarios) their launch geometry held against its Python mirror
+   memory) and K3 (a thread a (stage, scenario)) their launch geometry held
+   against its Python mirror
    (`_cuda.team_geometry`, `_cuda.sweep_geometry`, `_cuda.lin_geometry`).
 3. kernel vs plain, B=4096, f32 and bf16 payloads, at the tolerances stated
    in `check_pair` and `ndp_nmpc_qd_tpu_torch/testing.py`:
@@ -267,9 +267,8 @@ def lin_smem():
         got, want = linearize.geometry(B, N), _cuda.lin_geometry(B, N)
         check(got == want, f"linearize geometry at B={B}: C {got}, Python {want}")
     g = linearize.geometry(65536, N)
-    return (f"geometry (B=65536) {g['scenarios_per_block']} scenarios x "
-            f"{g['threads_per_scenario']} lanes (a warp a tangent column) = "
-            f"{g['threads_per_block']} threads a block, {g['blocks']} blocks, "
+    return (f"geometry (B=65536) a thread a (stage, scenario), {g['scenarios_per_block']} "
+            f"scenarios of one stage a block, {g['blocks']} blocks, "
             f"{g['smem_bytes_per_block']} B of shared memory")
 
 

@@ -10,14 +10,17 @@
 // stage 0's bounds): the full (N+1, ., B) tensors, which the TPU wrapper
 // concatenated outside its kernel. The thread computes the primal RK4
 // points once, then walks the 8 tangent columns (0-3 the quaternion states,
-// 4-6 the body rates, 7 the collective) in a loop, U at a time: each
+// 4-6 the body rates, 7 the collective) in a loop, one at a time: a
 // column's 10 tangent values live in registers from its seed to its store
 // (no array indexed by a runtime value, so nothing goes to local memory),
-// and the loop keeps the code small. Later substeps (substeps > 1) replay
-// the primal chain for each column. Each column's arithmetic is
-// rk4_tangents' (ndp.cuh, which K1 runs), column by column (rk4_points,
-// rk4_tangent_step), so K1 and K3 compute the same payload up to FMA
-// contraction.
+// and the loop keeps the code small and the registers at ~126, four blocks
+// an SM. Tensor elements are addressed from the kernel's parameters, so no
+// pointer a tensor is held in registers. With substeps > 1 each column
+// replays the later substeps' points, in an instantiation of its own. Each
+// column's arithmetic is rk4_tangents' (ndp.cuh, which K1 runs), column by
+// column (rk4_points, rk4_tangent_step), so K1 and K3 compute the same
+// payload up to FMA contraction. Measured against a warp a tangent column
+// and against all 8 columns a thread in registers (PERF.md).
 //
 // What bounds it on this card: bytes. A scenario costs about 59k scalar f32
 // operations (the RK4 step and its 8 tangent columns, ~3k a stage) against
@@ -26,16 +29,6 @@
 // load and store is coalesced across the warp (batch innermost).
 //
 // Bound to PyTorch through ctypes: plain C entry points, no PyTorch headers.
-
-#ifndef NDP_K3_UNROLL  // tangent columns a thread computes together: 1, 2, 4 or 8
-#define NDP_K3_UNROLL 1
-#endif
-#ifndef NDP_K3_THREADS  // threads (scenarios) a block
-#define NDP_K3_THREADS 128
-#endif
-#ifndef NDP_K3_MIN_BLOCKS  // blocks an SM that __launch_bounds__ asks registers for
-#define NDP_K3_MIN_BLOCKS 1
-#endif
 
 #include "ndp.cuh"
 
@@ -55,10 +48,8 @@ struct LinPtrs {
 
 namespace k3 {
 
-constexpr int COLS = 8;                 // tangent columns
-constexpr int U = NDP_K3_UNROLL;        // columns a thread computes together
-constexpr int THREADS = NDP_K3_THREADS;  // scenarios a block
-static_assert(COLS % U == 0, "U divides the 8 columns");
+constexpr int COLS = 8;       // tangent columns
+constexpr int THREADS = 128;  // scenarios a block
 
 // Launch geometry: [threads a (stage, scenario), scenarios a block, threads
 // a block, blocks, shared-memory bytes a block].
@@ -71,7 +62,7 @@ inline void geometry(int N, long long B, long long* out) {
 }
 
 // Element (k, i) of the thread's scenario of a (stage, d, B) tensor at p,
-// addressed from the kernel's parameters (no pointer held a tensor).
+// addressed from the kernel's parameters (no pointer a tensor is held).
 struct Elem {
   long long B, b;
   template <typename T>
@@ -162,7 +153,7 @@ __device__ __forceinline__ void terminal_terms(const LinPtrs& p, const Elem& e, 
 // substeps' primal points; substeps == 1 (the configuration in use) runs
 // without that code, and its registers.
 template <typename JT, bool REPLAY>
-__global__ void __launch_bounds__(ndp::k3::THREADS, NDP_K3_MIN_BLOCKS)
+__global__ void __launch_bounds__(ndp::k3::THREADS)
     linearize_kernel(const __grid_constant__ ndp::LinPtrs p,
                      const __grid_constant__ ndp::StepConsts c, long long B) {
   using namespace ndp;
@@ -194,24 +185,21 @@ __global__ void __launch_bounds__(ndp::k3::THREADS, NDP_K3_MIN_BLOCKS)
       for (int i = 0; i < NX; ++i) xe[i] = yn[i];
     }
 #pragma unroll 1
-  for (int c0 = 0; c0 < COLS; c0 += U) {
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      float tx[NX], tu[NU];
-      tangent_seed(c0 + j, tx, tu);
-      rk4_tangent_step(x, x2, x3, x4, u, tu, c, tx);
-      if (REPLAY) {  // the later substeps, their points replayed for this column
-        float xa[NX];
-        for (int i = 0; i < NX; ++i) xa[i] = x1s[i];
-        for (int sub = 1; sub < c.substeps; ++sub) {
-          float y2[NX], y3[NX], y4[NX], yn[NX];
-          rk4_points(xa, u, fdp, c, y2, y3, y4, yn);
-          rk4_tangent_step(xa, y2, y3, y4, u, tu, c, tx);
-          for (int i = 0; i < NX; ++i) xa[i] = yn[i];
-        }
+  for (int col = 0; col < COLS; ++col) {
+    float tx[NX], tu[NU];
+    tangent_seed(col, tx, tu);
+    rk4_tangent_step(x, x2, x3, x4, u, tu, c, tx);
+    if (REPLAY) {  // the later substeps, their points replayed for this column
+      float xa[NX];
+      for (int i = 0; i < NX; ++i) xa[i] = x1s[i];
+      for (int sub = 1; sub < c.substeps; ++sub) {
+        float y2[NX], y3[NX], y4[NX], yn[NX];
+        rk4_points(xa, u, fdp, c, y2, y3, y4, yn);
+        rk4_tangent_step(xa, y2, y3, y4, u, tu, c, tx);
+        for (int i = 0; i < NX; ++i) xa[i] = yn[i];
       }
-      store_column<JT>(p, e, k, c0 + j, tx);
     }
+    store_column<JT>(p, e, k, col, tx);
   }
   stage_terms<JT>(p, e, k, x, u, xe, c);
 }
@@ -230,8 +218,8 @@ int linearize_ptrs_size() { return (int)sizeof(ndp::LinPtrs); }
 
 // The launch geometry for the ctypes mirror (`linearize.geometry`): out =
 // [threads a (stage, scenario), scenarios a block, threads a block, blocks,
-// shared-memory bytes a block]; the second argument (substeps) is not
-// read.
+// shared-memory bytes a block]. The second argument, the jac dtype as the
+// other geometry exports take it, is not read.
 void linearize_geometry(int n_stages, int, long long B, long long* out) {
   ndp::k3::geometry(n_stages, B, out);
 }

@@ -40,9 +40,7 @@
 //
 // Bound to PyTorch through ctypes: plain C entry points, no PyTorch headers.
 
-#ifndef NDP_TEAM  // lanes a scenario of K6 (ndp_team.cuh)
-#define NDP_TEAM 4
-#endif
+#define NDP_TEAM 4  // lanes a scenario of K6 (ndp_team.cuh)
 #ifndef NDP_K6_THREADS  // compute threads a block, at most (the host tests build fewer)
 #define NDP_K6_THREADS 320
 #endif

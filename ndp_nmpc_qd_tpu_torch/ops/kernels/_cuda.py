@@ -307,14 +307,13 @@ def sweep_geometry(kind: str, B: int, jac_bf16: bool = False) -> dict:
 # a thread a (stage, scenario), a block a stage of LIN_THREADS consecutive
 # scenarios (the terminal node the last); no shared memory ----
 
-LIN_THREADS = 128  # NDP_K3_THREADS as built by default
+LIN_THREADS = 128  # ndp::k3::THREADS
 
 
-def lin_geometry(B: int, n_stages: int, substeps: int = 1) -> dict:
+def lin_geometry(B: int, n_stages: int) -> dict:
     """Launch geometry of K3 for B scenarios, as `ndp::k3::geometry`
     computes it: threads a (stage, scenario), scenarios a block, threads a
-    block, blocks (a tile of scenarios by a stage), shared memory a block;
-    `substeps` does not change it."""
+    block, blocks (a tile of scenarios by a stage), shared memory a block."""
     return dict(
         threads_per_scenario=1, scenarios_per_block=LIN_THREADS, threads_per_block=LIN_THREADS,
         blocks=-(-B // LIN_THREADS) * (n_stages + 1), smem_bytes_per_block=0,

@@ -345,12 +345,12 @@ GEOMETRY_KEYS = ("threads_per_scenario", "scenarios_per_block", "threads_per_blo
                  "smem_bytes_per_block")
 
 
-def geometry(B: int, n_stages: int, substeps: int = 1, lib=None) -> dict:
+def geometry(B: int, n_stages: int, lib=None) -> dict:
     """K3's launch geometry as its library computes it (mirrored by
     `_cuda.lin_geometry`): threads a (stage, scenario), scenarios a block,
     threads a block, blocks, shared memory a block."""
     out = (ctypes.c_longlong * len(GEOMETRY_KEYS))()
-    _lib(lib).linearize_geometry(n_stages, substeps, B, out)
+    _lib(lib).linearize_geometry(n_stages, 0, B, out)
     return dict(zip(GEOMETRY_KEYS, out))
 
 
@@ -367,15 +367,6 @@ def linearize_stage_data(xb, ub, xr, ur, fd, x0, **consts):
     """
     if xb.device.type == "cpu":
         return linearize_stage_data_plain(xb, ub, xr, ur, fd, x0, **consts)
-    out = linearize_launch(xb, ub, xr, ur, fd, x0, **consts)
-    linearize_stage_data.launches += 1
-    return out
-
-
-def linearize_launch(xb, ub, xr, ur, fd, x0, lib=None, **consts):
-    """Launch K3 from `lib` (a build of csrc/linearize.cu, such as a variant
-    of `_build.load`; None: the default build) on CUDA tensors and return
-    the payload as `linearize_stage_data`; counts nothing."""
     _cuda.need_cuda("linearize_stage_data", xb)
     Np1, _, B = xb.shape
     N = Np1 - 1
@@ -401,7 +392,8 @@ def linearize_launch(xb, ub, xr, ur, fd, x0, lib=None, **consts):
         fd=fd.data_ptr() if with_dist else None, x0=x0.data_ptr(),
         q=_cuda.qp_ptrs(out, N, B, jac_bf16, dev),
     )
-    _cuda.launch(_lib(lib).linearize_launch, jac_bf16, _cuda.step_consts(N, consts), ptrs, B, dev)
+    _cuda.launch(_lib().linearize_launch, jac_bf16, _cuda.step_consts(N, consts), ptrs, B, dev)
+    linearize_stage_data.launches += 1
     return tuple(out[n] for n in _cuda.QP_FIELDS)
 
 

@@ -166,12 +166,12 @@ def test_given_sweep_k6_emulated_matches_plain(cxx, jac_bf16, call, B):
 @pytest.mark.parametrize("with_dist", [False, True])
 @pytest.mark.parametrize("jac_bf16", [False, True])
 @pytest.mark.parametrize("B", [1, 23])
-def test_linearization_k3_emulated_matches_plain(cxx, B, jac_bf16, with_dist):
+def test_linearization_k3_emulated_matches_plain(cxx, B, jac_bf16, with_dist, substeps=1):
     """K3 (`linearize_stage_data`): every payload entry written (the outputs
     start at 7) and equal to the plain version's; a NaN position of one
     scenario's iterate stays in its gx and r."""
     lib = linearize._lib(emulate.load("linearize"))
-    lc = lin_consts(CFG.ocp, CFG.vehicle, with_dist, jac_bf16=jac_bf16)
+    lc = dict(lin_consts(CFG.ocp, CFG.vehicle, with_dist, jac_bf16=jac_bf16), substeps=substeps)
     ins = [t.clone().contiguous() for t in testing.kernel_inputs(B, N, CPU, 3)]
     nan_b = B // 2 if B > 1 else None
     if nan_b is not None:
@@ -188,6 +188,12 @@ def test_linearization_k3_emulated_matches_plain(cxx, B, jac_bf16, with_dist):
     held({n: ("primal", out[n], r) for n, r in zip(_cuda.QP_FIELDS, ref)}, nan_b)
 
 
+def test_linearization_k3_emulated_with_two_substeps(cxx):
+    """K3's instantiation for substeps > 1 (each column replays the later
+    substeps' points), at B=23 with the bf16 payload and the forecast."""
+    test_linearization_k3_emulated_matches_plain(None, 23, True, True, substeps=2)
+
+
 def test_emulated_geometry_matches_the_python_mirror(cxx):
     """The default builds' C geometry exports equal `_cuda.sweep_geometry`
     and `_cuda.lin_geometry`."""
@@ -201,4 +207,4 @@ def test_emulated_geometry_matches_the_python_mirror(cxx):
             assert rs.geometry(B, jac_bf16, lib=k4) == _cuda.sweep_geometry("glue", B, jac_bf16)
             assert rs.sweep_geometry(B, jac_bf16, lib=k6) == _cuda.sweep_geometry(
                 "given", B, jac_bf16)
-        assert linearize.geometry(B, N, 1, lib=k3) == _cuda.lin_geometry(B, N, 1)
+        assert linearize.geometry(B, N, lib=k3) == _cuda.lin_geometry(B, N)

@@ -1,8 +1,7 @@
 """K8, K4 and K6, the streamed backward sweeps, and K3, the linearization, on
-one CUDA card: build, check, time; build variants; and the parent commit
-against this tree.
+one CUDA card: build, check, time; and the parent commit against this tree.
 
-    python3 tools/time_sweep_kernels.py [--clocks] [--variants] [--parent DIR] [--sass DIR]
+    python3 tools/time_sweep_kernels.py [--clocks] [--parent DIR] [--sass DIR]
 
 1. Builds `csrc/riccati_packed.cu` (K8), `riccati_iter.cu` (K4),
    `riccati_sweep.cu` (K6) and `linearize.cu` (K3), every nvcc started
@@ -20,15 +19,9 @@ against this tree.
 3. Times each at B=65536 and 65535 (CUDA events over 20 queued launches),
    K8 on the Newton call, K4, K6 (the clipped-LQR start) and K3 on the bf16
    payload.
-4. `--variants [K3|K6]`: K3 with other columns computed together, threads
-   a block and blocks an SM (NDP_K3_UNROLL, NDP_K3_THREADS,
-   NDP_K3_MIN_BLOCKS) and K6
-   with 256 compute threads a block and with 8 lanes a scenario, each
-   checked at B=4096 and 65536 and timed at 65536 in turns with the
-   default build on the same tensors.
-5. `--clocks`: K8, K4 and K6 built with phase clocks (`NDP_TEAM_CLOCKS`),
+4. `--clocks`: K8, K4 and K6 built with phase clocks (`NDP_TEAM_CLOCKS`),
    each phase's cycles in block 0's first thread over one launch.
-6. `--parent DIR` (for example an unpacked `git archive` of the parent
+5. `--parent DIR` (for example an unpacked `git archive` of the parent
    commit): every kernel K1-K9 from both checkouts' libraries, loaded in one
    process, on the same tensors at B=65536 (K4, K6 and K8 also at 65535):
    outputs compared (bitwise where the kernel's source did not change) and
@@ -74,16 +67,6 @@ BUILDS = {  # name -> (source, defines)
     "K6": ("riccati_sweep", ()),
     "K3": ("linearize", ()),
 }
-VARIANTS = {  # name -> (kernel, source, defines)
-    **{f"K3, {u} columns together, {t} threads a block{f', {mb} blocks an SM' if mb else ''}": (
-        "K3", "linearize", (f"NDP_K3_UNROLL={u}", f"NDP_K3_THREADS={t}")
-        + ((f"NDP_K3_MIN_BLOCKS={mb}",) if mb else ()))
-       for u, t, mb in ((2, 128, 0), (4, 128, 0), (8, 128, 0), (1, 256, 0), (1, 64, 0),
-                        (1, 128, 3), (1, 128, 4), (2, 128, 3), (2, 128, 4))},
-    "K6, 256 compute threads a block": ("K6", "riccati_sweep", ("NDP_K6_THREADS=256",)),
-    "K6, 8 lanes a scenario": ("K6", "riccati_sweep", ("NDP_TEAM=8",)),
-}
-
 K4_OUT = (("K", "primal"), ("kf", "primal"), ("rhat", "primal"), ("res2", "resid"))
 K6_OUT = (("K", "primal"), ("kf", "primal"), ("rhat", "primal"))
 KW = ("h", "diag6_stage", "diag6_term", "rdiag_stage")
@@ -136,14 +119,14 @@ def geometry(libs):
                 got = fn(B, jac_bf16, libs[name])
                 want = _cuda.sweep_geometry(kind, B, jac_bf16)
                 cs.check(got == want, f"{name} geometry B={B}: C {got}, Python {want}")
-        got = linearize.geometry(B, N, 1, libs["K3"])
-        want = _cuda.lin_geometry(B, N, 1)
+        got = linearize.geometry(B, N, libs["K3"])
+        want = _cuda.lin_geometry(B, N)
         cs.check(got == want, f"K3 geometry B={B}: C {got}, Python {want}")
     print(f"geometry K8 (B=65536): {riccati.geometry(65536, libs['K8'])}")
     print(f"geometry K4 (B=65536, bf16): {riccati_sparse.geometry(65536, True, libs['K4'])}")
     print(f"geometry K6 (B=65536, bf16): {riccati_sparse.sweep_geometry(65536, True, libs['K6'])}")
     print(f"geometry K6 (B=65536, f32): {riccati_sparse.sweep_geometry(65536, False, libs['K6'])}")
-    print(f"geometry K3 (B=65536): {linearize.geometry(65536, N, 1, libs['K3'])}")
+    print(f"geometry K3 (B=65536): {linearize.geometry(65536, N, libs['K3'])}")
     print("geometry: C export == Python mirror for K8, K4, K6 (both payloads) and K3 at B in "
           "(1, 7, 301, 4096, 65535, 65536)")
 
@@ -168,8 +151,8 @@ def inputs(B, dev):
     return out
 
 
-def check_k3(lib, ins, lc):
-    got = linearize.linearize_launch(*ins, lib=lib, **lc)
+def check_k3(ins, lc):
+    got = linearize.linearize_stage_data(*ins, **lc)
     ref = linearize.linearize_stage_data_plain(*ins, **lc)
     jac = "bf16" if lc.get("jac_bf16") else "primal"
     return testing.compare({n: (jac if n in ("hq", "a", "b") else "primal", g, r)
@@ -214,8 +197,7 @@ def check(libs, dev):
                 cs.check_route("K6", route, cs.k6_route(b), b)
                 report("K6", f"{call}, {tag} payload, B={b}, {route}", errs, bad)
             for tag, args in ins["K3"].items():
-                report("K3", f"{tag} payload, B={b}",
-                       *check_k3(libs["K3"], cs.first(args, b), ins["lc"][tag]))
+                report("K3", f"{tag} payload, B={b}", *check_k3(cs.first(args, b), ins["lc"][tag]))
         del ins
     torch.cuda.synchronize()
 
@@ -231,7 +213,7 @@ def runs(libs, ins, odd=None):
         "K8": lambda: riccati.backward_packed_launch(*a8, lib=libs["K8"]),
         "K4": lambda: riccati_sparse.backward_glue_launch(*a4, lib=libs["K4"], **kw),
         "K6": lambda: riccati_sparse.sweep_backward_launch(*a6, lib=libs["K6"], **kw),
-        "K3": lambda: linearize.linearize_launch(*a3, lib=libs["K3"], **lc),
+        "K3": lambda: linearize.linearize_stage_data(*a3, **lc),
     }
 
 
@@ -247,41 +229,6 @@ def timing(libs, dev, B=65536, reps=20):
         print(f"time {name}: {ts[0]:.4f}, {ts[1]:.4f} ms ({reps} queued launches each, turns "
               f"forward then backward; K8 the Newton call, K4, K6 (clipped-LQR start) and K3 the "
               f"bf16 payload)")
-
-
-def variants(libs, dev, which, reps=20):
-    """Each variant build of kernel `which` ("all": every kernel) checked at
-    B=4096 and 65536, then timed at 65536 in turns with the default build on
-    the same tensors."""
-    chosen = {n: v for n, v in VARIANTS.items() if which in ("all", v[0])}
-    vlibs = build_all({name: (src, defines) for name, (_, src, defines) in chosen.items()})
-    for B in (4096, 65536):
-        ins = inputs(B, dev)
-        for name, (kernel, _, _) in chosen.items():
-            lib = vlibs[name]
-            if kernel == "K3":
-                for tag, args in ins["K3"].items():
-                    report(name, f"{tag} payload, B={B}", *check_k3(lib, args, ins["lc"][tag]))
-            else:
-                for (call, tag), args in ins["K6"].items():
-                    report(name, f"{call}, {tag} payload, B={B}", *check_k6(lib, args, ins["kw"]))
-                g = riccati_sparse.sweep_geometry(B, True, lib)
-                print(f"{name}: geometry (B={B}, bf16) {g}")
-        if B == 65536:
-            base = runs(libs, ins)
-            for name, (kernel, _, _) in chosen.items():
-                var = runs({**libs, kernel: vlibs[name]}, ins)[kernel]
-                ts = {}
-                for key, fn in (("default", base[kernel]), (name, var), (name, var),
-                                ("default", base[kernel])):
-                    fn()
-                    torch.cuda.synchronize()
-                    ts.setdefault(key, []).append(cs.cuda_ms(fn, reps))
-                print(f"variant {name}: {ts[name][0]:.4f}, {ts[name][1]:.4f} ms against the "
-                      f"default {kernel} {ts['default'][0]:.4f}, {ts['default'][1]:.4f} ms (B={B}, "
-                      f"bf16 payload, {reps} queued launches, turns default, variant, variant, "
-                      f"default)")
-        del ins
 
 
 CLOCK_BUILDS = {  # phase clocks (NDP_TEAM_CLOCKS)
@@ -461,8 +408,6 @@ def main():
     ap.add_argument("--parent", help="the other checkout (B) for the comparisons with it")
     ap.add_argument("--sass", help="write the default builds' SASS into this directory")
     ap.add_argument("--clocks", action="store_true", help="also the phase cycles of K8, K4, K6")
-    ap.add_argument("--variants", nargs="?", const="all",
-                    help="also the variant builds of K3 and K6 (or of the one named)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -484,8 +429,6 @@ def main():
         geometry(libs)
         check(libs, dev)
         timing(libs, dev)
-        if args.variants:
-            variants(libs, dev, args.variants)
         if args.clocks:
             clocks(dev)
         if args.parent:
