@@ -221,8 +221,10 @@ def ptxas_summary(log):
         if m:
             n = int(m.group(1))
             name, rest = m.group(2)[:n], m.group(2)[n:]
-            if rest.startswith(("If", "I13__nv_bfloat16")):
-                name += "<f32>" if rest.startswith("If") else "<bf16>"
+            t = re.match(r"I(f|13__nv_bfloat16)(?:Lb([01])E)?", rest)
+            if t:  # the jac dtype, and a bool argument (K3's multi-substep instance)
+                flag = "" if t.group(2) is None else ", true" if t.group(2) == "1" else ", false"
+                name += f"<{'f32' if t.group(1) == 'f' else 'bf16'}{flag}>"
         elif "bytes stack frame" in ln:
             frame = ln.strip()
         elif "ptxas info" in ln and "Used" in ln:
@@ -236,8 +238,8 @@ def ptxas_fields(log):
     spill_store_bytes}}, from nvcc's `-Xptxas -v` output."""
     out = {}
     for part in ptxas_summary(log).split(" | "):
-        m = re.match(r"(\S+) (\S+) registers, (?:(\d+) bytes stack frame, (\d+) bytes spill "
-                     r"stores)?", part)
+        m = re.match(r"(.+?) (\d+|\?) registers, (?:(\d+) bytes stack frame, (\d+) bytes "
+                     r"spill stores)?", part)
         if m:
             out[m.group(1)] = dict(
                 registers=int(m.group(2)) if m.group(2).isdigit() else None,

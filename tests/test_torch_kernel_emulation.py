@@ -10,8 +10,9 @@ NDP_K4_THREADS=64, NDP_K6_THREADS=64: at most 16 scenarios a block), so B =
 23, 24, 27 run two blocks, the last ragged. B = 24 takes the tensor copies;
 at B = 1, 23 and 27 (not a multiple of the rows' 16 bytes) K8 copies
 element by element and K4 and K6 run their one-thread sweeps; each launch's
-route is checked. K3 (32 scenarios a block, every stage its own block) runs
-its default build at B = 1 and 23, with and without the forecast.
+route is checked. K3 (128 scenarios of one stage a block) runs its default
+build at B = 1 and 23, with and without the forecast, with 1 and 2 RK4
+substeps.
 One scenario's input is NaN (B > 1): it must stay in that scenario. The
 kernel and the plain version sum in the same order, so they are held within
 1e-6 (`testing.err_of`'s measures; the plain dense sweep contracts with
@@ -163,13 +164,16 @@ def test_given_sweep_k6_emulated_matches_plain(cxx, jac_bf16, call, B):
         (("K", "K"), ("kf", "kf"), ("rhat", "rh")), ref)}, nan_b)
 
 
+@pytest.mark.parametrize("substeps", [1, 2])
 @pytest.mark.parametrize("with_dist", [False, True])
 @pytest.mark.parametrize("jac_bf16", [False, True])
 @pytest.mark.parametrize("B", [1, 23])
-def test_linearization_k3_emulated_matches_plain(cxx, B, jac_bf16, with_dist, substeps=1):
+def test_linearization_k3_emulated_matches_plain(cxx, B, jac_bf16, with_dist, substeps):
     """K3 (`linearize_stage_data`): every payload entry written (the outputs
     start at 7) and equal to the plain version's; a NaN position of one
-    scenario's iterate stays in its gx and r."""
+    scenario's iterate stays in its gx and r. With 2 substeps it runs its
+    other instantiation, where each column replays the later substeps'
+    points."""
     lib = linearize._lib(emulate.load("linearize"))
     lc = dict(lin_consts(CFG.ocp, CFG.vehicle, with_dist, jac_bf16=jac_bf16), substeps=substeps)
     ins = [t.clone().contiguous() for t in testing.kernel_inputs(B, N, CPU, 3)]
@@ -186,12 +190,6 @@ def test_linearization_k3_emulated_matches_plain(cxx, B, jac_bf16, with_dist, su
     emulate.launch(lib.linearize_launch, jac_bf16, _cuda.step_consts(N, lc), ptrs, B)
     ref = linearize.linearize_stage_data_plain(*ins, **lc)
     held({n: ("primal", out[n], r) for n, r in zip(_cuda.QP_FIELDS, ref)}, nan_b)
-
-
-def test_linearization_k3_emulated_with_two_substeps(cxx):
-    """K3's instantiation for substeps > 1 (each column replays the later
-    substeps' points), at B=23 with the bf16 payload and the forecast."""
-    test_linearization_k3_emulated_matches_plain(None, 23, True, True, substeps=2)
 
 
 def test_emulated_geometry_matches_the_python_mirror(cxx):
