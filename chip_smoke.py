@@ -77,8 +77,29 @@ Phases, one line each; any failure exits non-zero before the last line:
    d. the same with the clipped-LQR per-iteration controller
       (`--no-whole-step --no-whole-ipm`);
    each with its launches per tick, health, RMSE and wall time per tick.
-Every path and mission sets its kernels' launch counts to 0 just before it
-is driven and reads them just after. The last line is
+10. the runtime daemons on the card (`runtime/nodes.py`), the plant and the
+   controller as threads of this process over the shared-memory bus:
+   a. a live mission, `tests/test_runtime.py:215-224`'s goal, the
+      controller with its defaults (the deployed one-kernel step at B=1,
+      pipelined): status 1, pos RMSE < 0.25 m, more than 3 feedback
+      messages, the pose published, the GC restored, no recovery, and K1
+      launched once a tick plus the warm-up's once;
+   b. the same with `pipeline=False`;
+   c. the NDP leader (`tests/test_runtime.py:152-185`): a companion's
+      horizon 0.9 m above, the forecast on the card; the drone ends 0.05-1.5
+      m above its 1.0 m hold;
+   d. preempt, then resume (`tests/test_runtime.py:281-333`): status 2,
+      then status 1 (the resumed goal starts ~0.7 m from where the drone
+      held: its RMSE is printed, not bounded);
+   e. K1 at the daemon's operating point: on the state the controller of
+      (a) left at B=1, and on a deployed controller's at B=64, against its
+      plain version at `check_pair`'s tolerances, and timed; one deployed
+      `update` at B=1 and one at B=65536 under
+      `torch.cuda.set_sync_debug_mode("error")` (no host sync inside it).
+   Then the kernels line (K1 also with its B=1 and B=64 times and its
+   launches a daemon tick).
+Every path, mission and daemon run sets its kernels' launch counts to 0
+just before it is driven and reads them just after. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -88,9 +109,12 @@ import argparse
 import json
 import os
 import re
+import gc
 import subprocess
 import sys
+import threading
 import time
+import uuid
 
 import numpy as np
 import torch
@@ -108,6 +132,10 @@ from ndp_nmpc_qd_tpu_torch.ops.kernels import (
 )
 from ndp_nmpc_qd_tpu_torch.ops.layout import pack
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
+from ndp_nmpc_qd_tpu_torch.runtime import bus as qb
+from ndp_nmpc_qd_tpu_torch.runtime.nodes import (
+    ControllerDaemon, NodeTopics, PlantDaemon, send_trajectory,
+)
 from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import (
     SparseQp, ipm_consts, lin_consts, sparse_consts, whole_step_consts,
 )
@@ -116,6 +144,7 @@ from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import IpmWarm, cold_warm, ipm_s
 from ndp_nmpc_qd_tpu_torch.solver.rti import (
     RtiState, first_control_and_health, make_batched_rti_controller,
 )
+from ndp_nmpc_qd_tpu_torch.traj.polyopt import fit_waypoints
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 ASSET = os.path.join(ASSETS, "downwash_analytic_sn4.npz")
@@ -1065,6 +1094,214 @@ def phase_mission(name, extra=(), n_ticks=None):
     return result
 
 
+# the JAX live tests' goal (`tests/test_runtime.py:215-218`): 4 segments of 2 s
+DAEMON_WPTS = np.stack([[0, 0.5, 1.0, 0.5, 0.0], [0, 0.5, 0, -0.5, 0], np.ones(5)], axis=-1)
+
+
+class Live:
+    """A plant and a controller daemon as threads on a fresh namespace, on
+    `dev`; every kernel's launch count set to 0 before the controller is
+    built (its warm-up launches count). On exit: both stopped and joined,
+    the namespace unlinked, an exception of either thread raised here."""
+
+    def __init__(self, dev, ctl_ticks=0, **ctl_kw):
+        self.ns = f"smoke_{uuid.uuid4().hex[:8]}"
+        self.dev, self.ctl_ticks, self.ctl_kw = dev, ctl_ticks, ctl_kw
+        self.out, self.stop = {}, threading.Event()
+
+    def _run(self, name, fn, **kw):
+        try:
+            self.out[name] = fn(stop_event=self.stop, **kw)
+        except BaseException as e:  # handed to the main thread in __exit__
+            self.out[name] = e
+
+    def __enter__(self):
+        self.plant = PlantDaemon(self.ns, device=self.dev)
+        for fn in KERNELS.values():
+            fn.launches = 0
+        self.ctl = ControllerDaemon(self.ns, device=self.dev, **self.ctl_kw)
+        pr, cr = threading.Event(), threading.Event()
+        self.threads = [
+            threading.Thread(target=self._run, args=("plant", self.plant.run),
+                             kwargs=dict(ready_event=pr)),
+            threading.Thread(target=self._run, args=("ctl", self.ctl.run),
+                             kwargs=dict(ready_event=cr, max_ticks=self.ctl_ticks)),
+        ]
+        self.threads[0].start()
+        check(pr.wait(60), "the plant daemon did not start")
+        self.threads[1].start()
+        while not cr.wait(1.0):
+            check(self.threads[1].is_alive(), f"the controller daemon ended: {self.out.get('ctl')}")
+        return self
+
+    def join_controller(self, timeout):
+        self.threads[1].join(timeout)
+        check(not self.threads[1].is_alive(), "the controller daemon did not end")
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        for th in self.threads:
+            th.join(60)
+        NodeTopics.unlink(self.ns)
+        self.launches = {k: fn.launches for k, fn in KERNELS.items()}
+        for name, res in self.out.items():
+            if isinstance(res, BaseException):
+                raise res
+        check(not any(th.is_alive() for th in self.threads), "a daemon did not stop")
+        return False
+
+
+def check_daemon(tag, live, dev, res=None, feedback=None, rmse_bound=None):
+    """The daemon's run: the GC restored, the pose published; on the card no
+    recovery and K1 launched once a tick plus the warm-up's once and nothing
+    else (the CPU rehearsal's loop runs late, and may recover); the goal's
+    result where given. Returns the controller's result."""
+    c = live.out["ctl"]
+    lat = c["tick_latency"]
+    line = (f"daemon {tag} ({live.ctl.solver}, pipeline={live.ctl.pipeline}, {dev.type}): "
+            f"{c['ticks']} ticks, {c['overruns']} overruns, {c['recoveries']} recoveries, "
+            f"tick p50 {lat['p50_ms']:.3f} ms p99 {lat['p99_ms']:.3f} max {lat['max_ms']:.3f}, "
+            f"goal_to_first_cmd_s {c['goal_to_first_cmd_s']}, K1 launches {live.launches['K1']}; "
+            f"plant {live.out['plant']}")
+    if res is not None:
+        line += (f"; result status {int(res['status'])}, pos RMSE {float(res['pos_rmse']):.4f} m, "
+                 f"{len(feedback)} feedback messages")
+    print(line)
+    pseq, pose = live.ctl.t.pose.read_latest()
+    check(gc.isenabled(), f"daemon {tag}: the GC was left disabled")
+    check(pseq > 0 and np.isfinite(pose["pos"]).all(), f"daemon {tag}: no pose published")
+    if dev.type == "cuda":
+        check(c["recoveries"] == 0, f"daemon {tag}: {c['recoveries']} recoveries")
+        want = {k: (c["ticks"] + 1 if k == "K1" else 0) for k in KERNELS}
+        check(live.launches == want, f"daemon {tag} launched {live.launches}, want {want}")
+    if res is not None:
+        check(int(res["status"]) == 1 and len(feedback) > 3,
+              f"daemon {tag}: status {int(res['status'])}, {len(feedback)} feedback messages")
+        if rmse_bound is not None:
+            check(float(res["pos_rmse"]) < rmse_bound,
+                  f"daemon {tag}: pos RMSE {float(res['pos_rmse'])} >= {rmse_bound}")
+    return c
+
+
+def phase_daemons(dev, small=False):
+    """Phase 10 a-d. On the card the RMSE bound of the JAX live test holds;
+    the CPU rehearsal (the scan controller, whose tick overruns the 20 ms
+    period there) holds the protocol. Returns the pipelined live mission's
+    controller, its result and its K1 launches."""
+    traj = fit_waypoints(DAEMON_WPTS, np.full(4, 2.0))
+    bound = None if small else 0.25
+    runs = [("a, live mission", {})] + ([] if small else [("b, blocking", dict(pipeline=False))])
+    first = None
+    for tag, kw in runs:
+        with Live(dev, **kw) as live:
+            res, fb = send_trajectory(live.ns, traj, goal_id=3, timeout_s=30)
+        c = check_daemon(tag, live, dev, res, fb, bound)
+        first = first or (live.ctl, c, live.launches["K1"])
+    if small:
+        return first
+
+    comp = f"smoke_comp_{uuid.uuid4().hex[:8]}"
+    m = np.zeros((), qb.PRED_XU)
+    m["x"][:, 2] = 1.9  # hovering 0.9 m above the plant's start (z = 1)
+    m["x"][:, 6] = 1.0
+    qb.Topic(f"{comp}/ref_x_u", qb.PRED_XU).publish(m)
+    try:
+        with Live(dev, ctl_ticks=250, use_ndp=True, companion_ns=comp) as live:
+            live.join_controller(120)
+            _, odom = live.plant.t.odom.read_latest()
+    finally:
+        qb.Topic.unlink(f"{comp}/ref_x_u")
+    check_daemon("c, NDP leader", live, dev)
+    rise = float(odom["pos"][2]) - 1.0
+    print(f"daemon c, NDP leader: the drone ends {rise:.4f} m above its 1.0 m hold "
+          f"(band 0.05-1.5: the forecast's phantom downwash compensated)")
+    check(0.05 < rise < 1.5, f"NDP leader: {rise} m above the hold, want 0.05-1.5")
+
+    with Live(dev) as live:
+        res, fb = send_trajectory(live.ns, traj, goal_id=11, timeout_s=30, cancel_after_s=2.0)
+        res2, fb2 = send_trajectory(live.ns, fit_waypoints(DAEMON_WPTS[:3], np.full(2, 2.0)),
+                                    goal_id=12, timeout_s=30)
+    check_daemon("d, preempt then resume", live, dev, res2, fb2)
+    lat = live.ctl.goal_to_first_cmd_s
+    print(f"daemon d: goal 11 status {int(res['status'])} (partial pos RMSE "
+          f"{float(res['pos_rmse']):.4f} m, {len(fb)} feedback messages), goal 12 status "
+          f"{int(res2['status'])}; goal-to-first-command {lat:.4f} s")
+    check(int(res["status"]) == 2 and np.isfinite(res["pos_rmse"]),
+          f"preempt: status {int(res['status'])}")
+    check(lat is not None and lat < 2.0, f"goal-to-first-command {lat} s")
+    return first
+
+
+def k1_pair(st, x0, xr, ur, f, tag):
+    """K1 against its plain version from a batch-first operating point and
+    a kernel-layout state (bf16 payload, `check_pair`'s tolerances).
+    Returns (errors, the kernel call on clones of the state, for timing)."""
+    B = x0.shape[0]
+    consts = whole_step_consts(CFG.ocp, CFG.vehicle, True, jac_bf16=True, num_iters=3)
+    ins = (pack(xr), pack(ur), pack(f), pack(x0[:, None]))
+    k = [st.x_bar.clone(), st.u_bar.clone(), *[t.clone() for t in st.ipm]]
+    p = [t.clone() for t in k]
+
+    def run_kernel():
+        return step_whole.control_step_whole(k[0], k[1], *ins, *k[2:], **consts)
+
+    eq_k = run_kernel()
+    outs = step_whole.control_step_whole_plain(p[0], p[1], *ins, *p[2:], **consts)
+    e = pair_errors(k, eq_k, list(outs[:7]), outs[7])
+    print(f"kernel vs plain (K1, bf16 payload, B={B}, {tag}): " + describe_pair(e))
+    check_pair(f"bf16 payload, B={B}, {tag}", True, e, B)
+    return e, run_kernel
+
+
+def no_sync_update(ctl, st, args, tag):
+    """One `update` under `set_sync_debug_mode("error")`: a host sync inside
+    it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u0, _, info = ctl.update(st, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(bool(info.ok.all()) and bool(torch.isfinite(u0).all()), f"{tag}: unhealthy update")
+    print(f"no host sync inside the deployed update ({tag}): set_sync_debug_mode('error') "
+          f"passed")
+
+
+def phase_daemon_kernel(daemon, dev, mlp, seed, B_batch=64):
+    """Phase 10 e: K1 on the state the daemon's controller left (B=1) and
+    on a deployed controller's after 10 ticks at B_batch, against its plain
+    version, timed on the card; the no-sync updates. Returns the fields
+    K1's kernels-line entry gains."""
+    last = daemon.last
+    st1 = last["state"]
+    one = [t[None] for t in (last["x0"], last["xr"], last["ur"], last["f"])]
+    e1, run1 = k1_pair(st1, *one, "the live daemon's state")
+    ctl = controller(dev)
+    x0, xr, ur, other = inputs(B_batch, dev, seed + 2)
+    st = ctl.reset(xr, ur)
+    f = forecast(mlp, other, xr, x0, torch.bfloat16)
+    for _ in range(10):
+        _, st, _ = ctl.update(st, x0, xr, ur, f)
+    eb, runb = k1_pair(st, x0, xr, ur, f, "a deployed controller's state after 10 ticks")
+    out = dict(max_abs_err_B1=max(e1[n] for n in STATE),
+               max_abs_err_B64=max(eb[n] for n in STATE))
+    if dev.type != "cuda":
+        return out
+    out |= dict(ms_B1=cuda_ms(run1, 200), ms_B64=cuda_ms(runb, 200))
+    print(f"K1 at the daemon's operating point: {out['ms_B1']:.4f} ms at B=1, "
+          f"{out['ms_B64']:.4f} ms at B={B_batch} (CUDA events, 200 queued launches)")
+    no_sync_update(daemon.ctl, clone_state(st1),
+                   (last["x0"], last["xr"], last["ur"], last["f"]), "B=1, the daemon's")
+    big = controller(dev)
+    x0, xr, ur, other = inputs(65536, dev, seed + 3)
+    f = forecast(mlp, other, xr, x0, torch.bfloat16)
+    st = big.reset(xr, ur)
+    _, st, _ = big.update(st, x0, xr, ur, f)
+    no_sync_update(big, st, (x0, xr, ur, f), "B=65536")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--small", action="store_true",
@@ -1093,6 +1330,14 @@ def main():
             phase_closed_loop(8, dev, args.seed, mlp)
             phase_mission("three_qd_ndp", ("--cpu",), n_ticks=3)
             phase_mission("three_qd_ndp, kernels", ("--cpu",), n_ticks=3)
+            phase_daemons(dev, small=True)
+            packed = ControllerDaemon(f"smoke_{uuid.uuid4().hex[:8]}", solver="packed", device=dev)
+            odom = np.zeros((), qb.ODOMETRY)
+            odom["pos"], odom["quat"] = [0.3, -0.2, 1.1], [1.0, 0.0, 0.0, 0.0]
+            packed.t.odom.publish(odom)
+            packed.run(max_ticks=2)
+            NodeTopics.unlink(packed.ns)
+            phase_daemon_kernel(packed, dev, mlp, args.seed, B_batch=8)
             print("rehearsal done: no kernel ran, so no result is printed")
             sys.exit(2)
         phase_build()
@@ -1115,6 +1360,9 @@ def main():
         del main_, two, per, lqr, packed
         for name in MISSIONS:
             phase_mission(name)
+        daemon, c, k1 = phase_daemons(dev)
+        kernels[0] |= phase_daemon_kernel(daemon, dev, mlp, args.seed)
+        kernels[0]["launches_per_daemon_tick"] = (k1 - 1) / c["ticks"]  # less the warm-up's
         print(json.dumps({"kernels": kernels}))
     except Fail as e:
         print(f"FAILED: {e}", file=sys.stderr)

@@ -1,6 +1,7 @@
-"""Command-line mission runner: the launch-file layer, on the port.
+"""Command-line mission runner and runtime daemons: the launch-file layer, on
+the port.
 
-Port of the mission subcommand of `ndp_nmpc_qd_tpu/cli.py`, the reference's
+Port of `ndp_nmpc_qd_tpu/cli.py`: the mission subcommand, the reference's
 roslaunch topologies (`ndp_nmpc/launch/*.launch`):
 
   python -m ndp_nmpc_qd_tpu_torch mission one_qd         # one_qd_nmpc.launch
@@ -27,6 +28,18 @@ the kernel flags do not apply; `--f64 --cpu` runs it in float64.
 `--backend` names the controller in place of that rule (a flag the JAX CLI
 does not have); the defaults then follow the controller it names. The
 result records the backend and the flags as the solver applied them.
+
+The runtime daemons over the shared-memory bus (the rosrun analog, JAX
+`run_node`), each printing one JSON line:
+
+  python -m ndp_nmpc_qd_tpu_torch simnode --ns demo   # the plant (dop_sim role)
+  python -m ndp_nmpc_qd_tpu_torch serve --ns demo     # the NMPC controller daemon
+  python -m ndp_nmpc_qd_tpu_torch send --ns demo      # a goal; awaits the RMSE result
+
+They too run on the card, and `--cpu` on the CPU; without a card and without
+`--cpu` they fail (the JAX CLI pins its daemons to the CPU unless
+`--device tpu`). On the card `serve` runs the deployed one-kernel step at
+B=1 with dispatch-ahead ticks; on the CPU the scan controller cold@12.
 """
 
 from __future__ import annotations
@@ -239,9 +252,48 @@ def make_parser():
         "goals on independent topologies",
     )
     mission.add_argument("--controller", default="bodyrate", choices=["bodyrate", "thrust"])
-    for name in ("serve", "simnode", "send"):
-        sub.add_parser(name, help="runtime daemon (not ported yet: ROADMAP Queue 1 item 9)")
+    for name, hlp in (
+        ("serve", "NMPC controller daemon over the qdio bus"),
+        ("simnode", "plant (dop_sim role) daemon over the qdio bus"),
+        ("send", "send a trajectory goal and await the RMSE result"),
+    ):
+        p = sub.add_parser(name, help=hlp)
+        p.add_argument("--ns", default="fhnp")
+        p.add_argument("--leader-ns", default=None)
+        p.add_argument("--companion-ns", default=None,
+                       help="NDP: forecast downwash from this namespace's horizon")
+        p.add_argument("--max-ticks", type=int, default=0, help="0 = forever")
+        p.add_argument("--scale", type=float, default=1.0)
+        p.add_argument("--cancel-after", type=float, default=None,
+                       help="send: preempt the goal this many seconds in (status=2)")
+        p.add_argument("--cpu", action="store_true", help="run on the CPU")
     return ap
+
+
+def run_node(args) -> dict:
+    """One runtime daemon, or the goal client, on the card (`--cpu`: the
+    CPU). Returns its JSON-ready result."""
+    from . import resolve_device
+    from .runtime.nodes import ControllerDaemon, PlantDaemon, send_trajectory
+
+    dev = torch.device("cpu") if args.cpu else resolve_device()
+    if args.cmd == "serve":
+        daemon = ControllerDaemon(
+            args.ns, leader_ns=args.leader_ns, use_ndp=bool(args.companion_ns),
+            companion_ns=args.companion_ns, device=dev,
+        )
+        return daemon.run(max_ticks=args.max_ticks)
+    if args.cmd == "simnode":
+        return PlantDaemon(args.ns, device=dev).run(max_ticks=args.max_ticks)
+    traj = build_eight(scale=args.scale, dtype=torch.float64, device=dev)
+    res, fb = send_trajectory(args.ns, traj, goal_id=int(time.time()) % 10000,
+                              cancel_after_s=args.cancel_after)
+    return {
+        "status": int(res["status"]),
+        "pos_rmse": float(res["pos_rmse"]),
+        "yaw_rmse": float(res["yaw_rmse"]),
+        "feedback_msgs": len(fb),
+    }
 
 
 def main(argv=None):
@@ -252,9 +304,8 @@ def main(argv=None):
         raw = ["mission"] + raw
     args = make_parser().parse_args(raw)
     if args.cmd != "mission":
-        raise NotImplementedError(
-            f"{args.cmd}: the runtime daemons are not ported yet (ROADMAP Queue 1 item 9)"
-        )
+        print(json.dumps(run_node(args)))
+        return
     result, _ = run_mission(args)
     print(json.dumps(result))
     if not all(result["ok"]):

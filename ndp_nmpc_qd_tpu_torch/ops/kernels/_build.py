@@ -5,7 +5,10 @@ with a plain C interface (no PyTorch headers, so a build takes seconds) and
 is loaded with ctypes. Libraries are built at first use into `build/kernels/`
 beside the package (`NDP_TORCH_BUILD_DIR` overrides it), named by a hash of
 the sources and flags so that an edited source is rebuilt. A failed build
-raises with the compiler's output; nothing falls back.
+raises with the compiler's output; nothing falls back. Threads of one
+process (the runtime daemons) build and load under one lock, and every
+build writes a temp file of its own process and thread before it is renamed
+into place.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +35,7 @@ NVCC_FLAGS = (
 #          "cached": bool, "log": nvcc/ptxas output}
 build_info: dict = {}
 _libs: dict = {}
+lock = threading.RLock()
 
 
 def build_dir() -> Path:
@@ -80,7 +85,7 @@ def build(names=SOURCES, defines=()) -> None:
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (out, key) in todo.items():
-        tmp = out.parent / f"{out.stem}.tmp{os.getpid()}.so"
+        tmp = out.parent / f"{out.stem}.tmp{os.getpid()}-{threading.get_ident()}.so"
         cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
@@ -105,7 +110,8 @@ def load(name: str, defines=()) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu` (built with `defines`), built
     first if needed."""
     key = (name, tuple(defines))
-    if key not in _libs:
-        build((name,), defines)
-        _libs[key] = ctypes.CDLL(str(_lib_path(name, defines)))
-    return _libs[key]
+    with lock:
+        if key not in _libs:
+            build((name,), defines)
+            _libs[key] = ctypes.CDLL(str(_lib_path(name, defines)))
+        return _libs[key]

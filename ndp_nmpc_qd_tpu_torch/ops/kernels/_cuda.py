@@ -79,7 +79,11 @@ def bind(name: str, ptrs_type, launchers, geometry=None, lib=None):
     with its functions typed and its struct sizes checked against the
     mirrors. `geometry`: the name of its team-geometry export."""
     lib = lib or _build.load(name)
-    if not getattr(lib, "_ndp_ready", False):
+    if getattr(lib, "_ndp_ready", False):
+        return lib
+    with _build.lock:
+        if getattr(lib, "_ndp_ready", False):
+            return lib
         for fn in launchers:
             f = getattr(lib, fn)
             f.argtypes = [ctypes.c_int, _P, _P, ctypes.c_longlong, _P]

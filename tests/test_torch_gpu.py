@@ -28,6 +28,12 @@ gains and the f32 payload atol 1e-4 of max(1, max|ref|); duals, their
 directions, mu and comp4 rtol 1e-3 at their own scale; eq_res and res2
 rtol 1e-3 above a floor 1e-6; the bf16 curvature payload within 2^-8 of
 its largest entry.
+
+The runtime layer: a live mission of the plant and controller daemons on
+the card at the JAX live test's 0.25 m bound; the deployed `update` at B=1
+and 64 with no host sync (`torch.cuda.set_sync_debug_mode("error")`); and
+4 deployed ticks captured in a CUDA graph, replayed bitwise equal to the
+same ticks run eagerly.
 """
 
 import numpy as np
@@ -338,3 +344,112 @@ def test_streamed_sweeps_keep_a_nan_in_its_scenario(B):
             ref = riccati_sparse.riccati_sweep_backward_plain(*args, **kw)
             torch.cuda.synchronize()
             held({n: ("primal", g, r) for n, g, r in zip(("K", "kf", "rhat"), got, ref)})
+
+
+# ---- the runtime daemons and the bench's step on the card ----
+
+
+def _bench():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "bench_torch.py"
+    spec = importlib.util.spec_from_file_location("bench_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_live_mission_on_the_card():
+    """The plant and the controller daemon (the defaults: the deployed
+    one-kernel step at B=1, pipelined) as threads on the card, the JAX
+    live test's goal (`tests/test_runtime.py:215-224`) and its bound:
+    status 1, pos RMSE < 0.25 m, more than 3 feedback messages; one K1
+    launch a tick plus the warm-up's one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import gc
+    import threading
+    import uuid
+
+    from ndp_nmpc_qd_tpu_torch.runtime.nodes import (
+        ControllerDaemon, NodeTopics, PlantDaemon, send_trajectory,
+    )
+    from ndp_nmpc_qd_tpu_torch.traj.polyopt import fit_waypoints
+
+    ns = f"gpu_{uuid.uuid4().hex[:8]}"
+    plant, ctl = PlantDaemon(ns), ControllerDaemon(ns)
+    assert ctl.solver == "packed" and ctl.pipeline is True
+    stop, out = threading.Event(), {}
+    pr, cr = threading.Event(), threading.Event()
+    threads = [
+        threading.Thread(target=lambda: out.setdefault("plant", plant.run(
+            ready_event=pr, stop_event=stop))),
+        threading.Thread(target=lambda: out.setdefault("ctl", ctl.run(
+            ready_event=cr, stop_event=stop))),
+    ]
+    before = step_whole.control_step_whole.launches
+    try:
+        threads[0].start()
+        assert pr.wait(60)
+        threads[1].start()
+        assert cr.wait(300)
+        wpts = np.stack([[0, 0.5, 1.0, 0.5, 0.0], [0, 0.5, 0, -0.5, 0], np.ones(5)], axis=-1)
+        res, feedback = send_trajectory(ns, fit_waypoints(wpts, np.full(4, 2.0)), goal_id=3,
+                                        timeout_s=30)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(60)
+        NodeTopics.unlink(ns)
+    assert not any(th.is_alive() for th in threads)
+    assert int(res["status"]) == 1
+    assert float(res["pos_rmse"]) < 0.25, float(res["pos_rmse"])
+    assert len(feedback) > 3
+    assert out["ctl"]["recoveries"] == 0 and gc.isenabled()
+    assert step_whole.control_step_whole.launches - before == out["ctl"]["ticks"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 64])
+def test_deployed_update_makes_no_host_sync(B):
+    """`update` of the deployed controller queues its work and never waits
+    for the card (no `.item()`, no pageable copy, no `nonzero`): what the
+    daemon's dispatch-ahead ticks and the CUDA-graph row rely on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    bt = _bench()
+    dev = torch.device("cuda")
+    ctl = bt.make_batched_rti_controller(bt.CFG.ocp, bt.CFG.vehicle, device=dev,
+                                         **bt.deployed_flags())
+    x0, xr, ur, other = bt.inputs(B, dev, seed=2)
+    f = torch.zeros(B, bt.N + 1, 3, device=dev)
+    st = ctl.reset(xr, ur)
+    _, st, _ = ctl.update(st, x0, xr, ur, f)  # the first call caches the constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u0, st, info = ctl.update(st, x0, xr, ur, f)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(info.ok.all()) and bool(torch.isfinite(u0).all())
+
+
+@pytest.mark.gpu
+def test_cuda_graph_replay_equals_eager():
+    """4 deployed ticks (the bf16 forecast and one K1 launch each) captured
+    in a CUDA graph: the replay equals the same ticks run eagerly from a
+    copy of the state, bitwise; the capture counted 4 K1 launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    bt = _bench()
+    dev = torch.device("cuda")
+    ctl = bt.make_batched_rti_controller(bt.CFG.ocp, bt.CFG.vehicle, device=dev,
+                                         **bt.deployed_flags())
+    ins = bt.inputs(301, dev, seed=3)
+    step = bt.control_step(ctl, bt.load_npz(bt.ASSET, device=dev), True)
+    row, _ = bt.row_multitick(step, ctl.reset(ins[1], ins[2]), ins, K=4, reps=1)
+    assert row["replay_vs_eager_max_abs_diff"] == 0.0, row
+    assert row["k1_launches_per_replay"] == 4 and row["ok_last_tick"] == 301

@@ -38,7 +38,7 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "ndp_nmpc_qd_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):
@@ -207,14 +207,20 @@ def test_packed_wrappers_take_the_plain_versions_on_cpu_tensors():
         riccati.riccati_forward_packed(*meta[6:9], K.to("meta"), kf.to("meta"), meta[9])
 
 
-@pytest.mark.parametrize("argv", [["serve"], ["mission", "one_qd", "--cpu", "--f64",
-                                              "--controller", "thrust"]])
-def test_unported_cli_commands_raise(argv):
-    """The runtime daemons (ROADMAP Queue 1 item 9) and the thrust
-    controller (item 10) raise instead of running something else."""
+@pytest.mark.parametrize("argv, error, match", [
+    (["serve", "--max-ticks", "1"], RuntimeError, "no CUDA device"),
+    (["mission", "one_qd", "--cpu", "--f64", "--controller", "thrust"], NotImplementedError,
+     "ROADMAP Queue 1 item"),
+])
+def test_unported_cli_commands_raise(argv, error, match, monkeypatch):
+    """The thrust controller (ROADMAP Queue 1 item 10) raises instead of
+    running something else. The runtime daemons are ported: they run on the
+    card or with --cpu, and without a card `serve` fails instead of running
+    on the CPU."""
     from ndp_nmpc_qd_tpu_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(error, match=match):
         main(argv)
 
 

@@ -136,17 +136,24 @@ def test_whole_step_controller_matches_jax():
 
 @pytest.mark.parametrize("bad", [
     dict(cli=["mission", "three_qd", "--cpu", "--controller", "thrust"]), dict(fused_lin=False),
-    dict(cli=["simnode"]), dict(cli=["send"]),
+    dict(cli=["simnode"], no_card=True), dict(cli=["send"], no_card=True),
 ])
-def test_unported_combinations_raise(bad):
+def test_unported_combinations_raise(bad, monkeypatch):
     """Options that are not ported yet raise, naming their ROADMAP item:
-    the jnp sparse linearizer (`fused_lin=False`), the mission CLI's thrust
-    controller and the runtime daemons `simnode` and `send`. (The
-    per-iteration path's clipped-LQR start and the scan and legacy dense
-    backends, once cases here, run now.)"""
+    the jnp sparse linearizer (`fused_lin=False`) and the mission CLI's
+    thrust controller. The runtime daemons `simnode` and `send` are ported:
+    they run on the card or with --cpu, and without a card they fail
+    instead of running on the CPU. (The per-iteration path's clipped-LQR
+    start and the scan and legacy dense backends, once cases here, run
+    now.)"""
     if "cli" in bad:
         from ndp_nmpc_qd_tpu_torch.cli import main
 
+        if bad.get("no_card"):
+            monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                main(bad["cli"])
+            return
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(bad["cli"])
         return
