@@ -25,10 +25,15 @@ daemon's tick, on the card:
 4. `cpu_daemon_tick`: the scan controller at B=1 on the CPU in float64 (the
    program of `serve --cpu`), 50 warm ticks, then 1000.
 5. The headline: the better of rows 1 and 2.
+6. `roofline`: the deployed step's memory traffic and operations a solve,
+   counted from its layouts (`utils/roofline.py`, `bench.py:304-332`'s
+   line), at row 1's solves/s against the H100's peaks (HBM 3.35 TB/s, f32
+   67 TFLOP/s): a lower bound on the share the step reaches.
 
 Prints ONE JSON line on stdout in `bench.py`'s schema (`metric`
 ndp_nmpc_solves_per_s_chip, `value`, `unit`, `vs_baseline` = solves/s / 50:
-the reference runs one solve per 20 ms period per device); diagnostics go to
+the reference runs one solve per 20 ms period per device; `roofline`);
+diagnostics go to
 stderr, every row to `--details` (default build/bench_torch_details.json).
 Without a card it fails: there is no CPU fallback. `BENCH_*` environment
 variables mirror `bench.py`'s for the rows that exist.
@@ -55,6 +60,7 @@ from ndp_nmpc_qd_tpu_torch.runtime.nodes import HostLink
 from ndp_nmpc_qd_tpu_torch.solver.rti import (
     RtiState, make_batched_rti_controller, make_rti_controller,
 )
+from ndp_nmpc_qd_tpu_torch.utils.roofline import roofline_report, step_cost
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(ROOT, "assets", "downwash_analytic_sn4.npz")
@@ -322,6 +328,19 @@ def row_cpu_daemon(ins, warm=50, ticks=1000):
             "gc_disabled": not gc.isenabled(), "ok": bool(info.ok)}
 
 
+def roofline_row(flags, solves_per_s):
+    """`bench.py:304-320`'s roofline of the deployed step at `solves_per_s`."""
+    cost = step_cost(N=N, qp_iters=flags["qp_iters"], jac_bf16=flags["jac_bf16"],
+                     whole_kernel=flags["whole_ipm"], lqr_start=flags["lqr_start"],
+                     packed_state=flags["packed_state"], whole_step=flags["whole_step"])
+    roof = roofline_report(cost, solves_per_s)
+    print(f"roofline: {roof['hbm_bytes_per_solve'] / 1e3:.3f} KB/solve -> "
+          f"{roof['achieved_gb_s']} GB/s = {roof['h100_hbm_pct']}% of the H100's HBM peak; "
+          f"~{roof['achieved_tflops_est']} TFLOP/s = {roof['h100_f32_pct_est']}% of its f32 "
+          f"peak (est.)", file=sys.stderr)
+    return roof
+
+
 def card_line():
     """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`."""
     return subprocess.run(
@@ -355,7 +374,8 @@ def main(argv=None):
 
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     row, state = row_throughput(step, state, ins)
-    details["throughput"] = {**row, **flags, "mlp_bf16": mlp_bf16}
+    roof = roofline_row(flags, row["solves_per_s"])
+    details["throughput"] = {**row, **flags, "mlp_bf16": mlp_bf16, "roofline": roof}
     print(f"throughput: B={B} device step {row['device_step_ms']:.3f} ms (wall "
           f"{row['wall_step_ms']:.3f}) -> {row['solves_per_s']:.0f} solves/s; blocking p50 "
           f"{row['blocking_p50_ms']:.3f} ms p90 {row['blocking_p90_ms']:.3f}; ok "
@@ -391,7 +411,7 @@ def main(argv=None):
         json.dump(details, fh, indent=1)
     print(json.dumps({
         "metric": "ndp_nmpc_solves_per_s_chip", "value": round(best, 1), "unit": "solves/s",
-        "vs_baseline": round(best / 50.0, 2),
+        "vs_baseline": round(best / 50.0, 2), "roofline": roof,
     }))
 
 

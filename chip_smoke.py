@@ -51,6 +51,13 @@ Phases, one line each; any failure exits non-zero before the last line:
       then one tick of it and of the scan controller (`backend="jax"`) on
       a 256-scenario sub-batch, held at 1e-4, twice: from `reset` (the
       deltas of order one) and from the state the path left.
+   d. the tensor-op linearizer (`fused_lin=False`, batch-first state) in
+      place of K3: its whole-IPM path (K2 a tick, no K3); one tick of it
+      and of the fused K3 + K2 from the state it left (f32 payload, u0
+      atol 2e-5, x_bar atol 2e-4, `ok` equal); K3's payload against its
+      (f32: each field at 5e-6 of its scale, dx0 at 1e-5; bf16: hq, a, b
+      within one ulp); then its per-iteration path from the clipped-LQR
+      start at B - 1 (K6's and K4's one-thread sweeps, routes checked).
 7. closed loop: 150-tick hover recovery at B=65536 through an RK4 plant that
    feels the same node-0 forecast force the controller was given.
 8. kernels: each kernel against its plain version once more at B=65536 on
@@ -62,7 +69,8 @@ Phases, one line each; any failure exits non-zero before the last line:
    K8 also with their lanes a scenario, scenarios, threads and shared
    memory a block, and bound share; K3 with its ptxas registers and stack;
    K3, K4, K6 and K8 with their time and error at the odd batch, K4, K6 and
-   K8 with the route each batch took).
+   K8 with the route each batch took; every kernel with its launches on
+   the tensor-op linearizer's paths).
 9. missions through the port's CLI (`cli.run_mission`), 200 hold ticks and
    16 s of the figure-eight (1000 ticks), recovery on:
    a. `three_qd_ndp` (3 drones: the scan controller cold@12, as the JAX
@@ -76,7 +84,11 @@ Phases, one line each; any failure exits non-zero before the last line:
       formations), the deployed one-kernel configuration;
    d. the same with the clipped-LQR per-iteration controller
       (`--no-whole-step --no-whole-ipm`);
-   each with its launches per tick, health, RMSE and wall time per tick.
+   each with its launches per tick, health, RMSE and wall time per tick;
+   e. `one_qd --controller thrust --track-secs 8` (the motor-thrust NMPC,
+      its dense IPM cold@12, 600 ticks), every tick's rotor thrusts held
+      against its JAX golden (assets/mission_golden_one_qd_thrust.npz) at
+      1e-3 N; no K1-K9 launch.
 10. the runtime daemons on the card (`runtime/nodes.py`), the plant and the
    controller as threads of this process over the shared-memory bus:
    a. a live mission, `tests/test_runtime.py:215-224`'s goal, the
@@ -107,6 +119,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import gc
@@ -137,7 +150,8 @@ from ndp_nmpc_qd_tpu_torch.runtime.nodes import (
     ControllerDaemon, NodeTopics, PlantDaemon, send_trajectory,
 )
 from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import (
-    SparseQp, ipm_consts, lin_consts, sparse_consts, whole_step_consts,
+    SparseQp, ipm_consts, lin_consts, make_linearizer, make_ocp_functions_sparse,
+    sparse_consts, whole_step_consts,
 )
 from ndp_nmpc_qd_tpu_torch.solver.ocp_packed import make_ocp_functions_packed
 from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import IpmWarm, cold_warm, ipm_sparse
@@ -145,12 +159,12 @@ from ndp_nmpc_qd_tpu_torch.solver.rti import (
     RtiState, first_control_and_health, make_batched_rti_controller,
 )
 from ndp_nmpc_qd_tpu_torch.traj.polyopt import fit_waypoints
+from ndp_nmpc_qd_tpu_torch.utils.roofline import F32_FLOPS_PER_S, HBM_BYTES_PER_S
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 ASSET = os.path.join(ASSETS, "downwash_analytic_sn4.npz")
 GOLDEN = os.path.join(ASSETS, "mission_golden_three_qd_ndp.npz")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-F32_FLOPS_PER_S = 67e12  # f32 outside the tensor cores
+THRUST_GOLDEN = os.path.join(ASSETS, "mission_golden_one_qd_thrust.npz")
 CFG = NdpNmpcConfig()
 N = CFG.ocp.N_node
 STATE = ("xb", "ub", "lu_lo", "lu_up", "lx_lo", "lx_up", "mu", "eq")
@@ -492,7 +506,14 @@ PATHS = {
     # the legacy dense path is cold and f32; it ignores the other flags
     "pallas_packed": (dict(backend="pallas_packed", packed_state=False, whole_step=False,
                            qp_iters=PACKED_ITERS), {"K8": 1 + PACKED_ITERS, "K9": 1 + PACKED_ITERS}),
+    # the tensor-op linearizer in place of K3 (batch-first state)
+    "tensor-lin whole IPM": (dict(fused_lin=False, packed_state=False, whole_step=False,
+                                  whole_ipm=True, lqr_start=False), {"K2": 1}),
+    "tensor-lin per-iteration LQR": (dict(fused_lin=False, packed_state=False, whole_step=False,
+                                          whole_ipm=False, lqr_start=True),
+                                     {"K6": 1, "K7": 1, "K4": 3, "K5": 3}),
 }
+TENSOR_LIN = ("tensor-lin whole IPM", "tensor-lin per-iteration LQR")
 
 
 def controller(dev, jac_bf16=True, **flags):
@@ -697,6 +718,69 @@ def phase_packed_agree(res, dev, mlp, sub=256):
               f"{float(i_k.eq_res.max()):.3g} (scan {float(i_s.eq_res.max()):.3g})")
         check(err <= 1e-4 and ok_diff == 0, f"pallas_packed vs scan controller from {where}: "
               f"u0 {err}, {ok_diff} ok flags differ")
+
+
+def phase_tensor_lin(B, dev, seed, mlp, warm_ticks=3, timed_ticks=30):
+    """Phase 6d: the tensor-op linearizer (`fused_lin=False`) in place of K3.
+    Drive its whole-IPM path at B (K2 a tick, no K3); then, from the state
+    it left and on its inputs, one tick of the fused (K3 + K2) and one of the
+    tensor-op controller with the f32 payload, held at
+    `tests/test_lin_kernel.py:76-97`'s bounds (u0 atol 2e-5, x_bar atol
+    2e-4, `ok` equal); K3's payload against the tensor-op linearizer's,
+    field by field at `test_lin_kernel.py:55-73`'s scaled 5e-6 (f32) and
+    dx0 at 1e-5, and with the bf16 payload hq, a and b within one bf16 ulp
+    of max(1, max|ref|) (2^(e - 7) for that value in [2^e, 2^(e+1)): the
+    f32 values before the rounding differ by ~2e-7 of their scale, so an
+    entry next to a rounding boundary may round the other way, by one ulp
+    of its own binade); then the per-iteration path from the clipped-LQR
+    start (K6 + K7, then K4 + K5) at B - 1, each sweep's route checked.
+    Returns the two paths' results."""
+    res = phase_path(B, dev, seed, mlp, TENSOR_LIN[0], warm_ticks, timed_ticks)
+    st, x0, xr, ur = res["state"], res["x0"], res["xr"], res["ur"]
+    f = forecast(mlp, res["other"], xr, x0, torch.bfloat16)
+    out = {}
+    for fused in (True, False):
+        ctl = controller(dev, jac_bf16=False, **dict(PATHS[TENSOR_LIN[0]][0], fused_lin=fused))
+        out[fused] = ctl.update(clone_state(st), x0, xr, ur, f)
+    (u_k, s_k, i_k), (u_j, s_j, i_j) = out[True], out[False]
+    e_u = float((u_k - u_j).abs().max())
+    e_x = float((s_k.x_bar - s_j.x_bar).abs().max())
+    ok_diff = int((i_k.ok != i_j.ok).sum())
+    print(f"tensor-op vs fused linearizer (K2 after each, f32 payload, B={B}, one tick from "
+          f"the path's state): max |u0 diff| {e_u:.3g} (bound 2e-5), max |x_bar diff| "
+          f"{e_x:.3g} (bound 2e-4), ok mismatches {ok_diff}, ok {int(i_k.ok.sum())}/{B}")
+    check(e_u <= 2e-5 and e_x <= 2e-4 and ok_diff == 0,
+          f"tensor-op vs fused linearizer: u0 {e_u}, x_bar {e_x}, {ok_diff} ok flags differ")
+    for jac_bf16 in (False, True):
+        lin_k, _ = make_linearizer(CFG.ocp, CFG.vehicle, True, jac_bf16=jac_bf16)
+        lin_j, _, _ = make_ocp_functions_sparse(CFG.ocp, CFG.vehicle, True, jac_bf16=jac_bf16)
+        (q_k, d_k), (q_j, d_j) = (lin(st.x_bar, st.u_bar, xr, ur, f, x0) for lin in (lin_k, lin_j))
+        errs, bad = {}, []
+        for name in q_j._fields:
+            got, ref = getattr(q_k, name).float(), getattr(q_j, name).float()
+            scale = max(1.0, float(ref.abs().max()))
+            if jac_bf16 and name in ("hq", "a", "b"):  # in ulps of the scale's binade
+                errs[name] = float((got - ref).abs().max()) / 2.0 ** (math.floor(
+                    math.log2(scale)) - 7)
+                bound = 1.0
+            else:
+                errs[name], bound = float((got - ref).abs().max()) / scale, 5e-6
+            if not errs[name] <= bound:
+                bad.append(name)
+        e_d = float((d_k - d_j).abs().max())
+        tag = "bf16" if jac_bf16 else "f32"
+        print(f"K3 vs the tensor-op linearizer ({tag} payload, B={B}, the path's state; "
+              f"{'hq, a, b in bf16 ulps, ' if jac_bf16 else ''}the rest of max(1, max|ref|)): "
+              + ", ".join(f"{n} {v:.3g}" for n, v in errs.items()) + f"; dx0 {e_d:.3g}")
+        check(not bad and e_d <= 1e-5, f"K3 vs the tensor-op linearizer ({tag} payload): "
+              f"{', '.join(bad) or 'dx0'} out of tolerance")
+    lqr = phase_path(B - 1, dev, seed, mlp, TENSOR_LIN[1], warm_ticks, timed_ticks)
+    if dev.type == "cuda":
+        check_route("K4", riccati_sparse.last_route(), k4_route(B - 1), B - 1)
+        check_route("K6", riccati_sparse.last_sweep_route(), k6_route(B - 1), B - 1)
+        print(f"tensor-lin per-iteration LQR path (B={B - 1}): K6 by {k6_route(B - 1)}, K4 by "
+              f"{k4_route(B - 1)}")
+    return {TENSOR_LIN[0]: res, TENSOR_LIN[1]: lqr}
 
 
 def phase_closed_loop(B, dev, seed, mlp, ticks=150):
@@ -1094,6 +1178,40 @@ def phase_mission(name, extra=(), n_ticks=None):
     return result
 
 
+def phase_thrust_mission(cpu=False, n_ticks=None):
+    """Phase 9e: `mission one_qd --controller thrust` through
+    `cli.run_mission` with the argv its JAX golden was recorded with
+    (assets/mission_golden_one_qd_thrust.npz, written by
+    `tools/validate_port_mission.py --mission thrust --golden`), every
+    kernel's count set to 0 just before and read just after: `ok`, every
+    tick's rotor thrusts within 1e-3 N of the golden's (BASELINE.md's
+    control bound, in the thrusts' unit; hover is m g / 4 ~ 3.64 N), and no
+    K1-K9 launch (the controller is the dense IPM, plain tensor code)."""
+    with np.load(THRUST_GOLDEN) as g:
+        argv = json.loads(str(g["argv"]))
+        u0_g, x_g, pos_g = g["u0"], g["x"], g["pos_rmse"]
+    args = cli.make_parser().parse_args(argv + (["--cpu"] if cpu else []))
+    for fn in KERNELS.values():
+        fn.launches = 0
+    result, run = cli.run_mission(args, record_traces=True, n_ticks=n_ticks)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    T = result["ticks"]
+    x, u0 = (t.double().cpu().numpy() for t in run["traces"])
+    dev_u0 = float(np.abs(u0 - u0_g[:T]).max())
+    dev_x = float(np.abs(x - x_g[:T]).max())
+    print(f"mission one_qd, thrust controller: {json.dumps(result)}")
+    print(f"mission one_qd, thrust controller ({' '.join(argv[1:])}, {T} ticks): "
+          f"{result['ms_per_tick']:.3f} ms a tick (wall, synchronised); ok {result['ok']}; pos "
+          f"RMSE {result['pos_rmse']} (JAX {[round(float(v), 5) for v in pos_g]}); max |u0 - "
+          f"u0_jax| {dev_u0:.3g} N over {T} ticks (bound 1e-3 N), max |x - x_jax| {dev_x:.3g}; "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    check(result["ok"] == [True], "thrust mission: not ok")
+    check(u0.shape == (T, 1, 4) and dev_u0 < 1e-3,
+          f"thrust mission: control deviation {dev_u0} N from the JAX golden")
+    check(not any(launches.values()), f"thrust mission launched {launches}")
+    return result
+
+
 # the JAX live tests' goal (`tests/test_runtime.py:215-218`): 4 segments of 2 s
 DAEMON_WPTS = np.stack([[0, 0.5, 1.0, 0.5, 0.0], [0, 0.5, 0, -0.5, 0], np.ones(5)], axis=-1)
 
@@ -1324,12 +1442,14 @@ def main():
             phase_path(8, dev, args.seed, mlp, "per-iteration", 1, 2)
             phase_compare_sweep(8, dev, args.seed)
             phase_path(8, dev, args.seed, mlp, "per-iteration LQR", 1, 2)
+            phase_tensor_lin(8, dev, args.seed, mlp, 1, 2)
             phase_compare_packed(8, dev, args.seed)
             packed = phase_path(8, dev, args.seed, mlp, "pallas_packed", 1, 2)
             phase_packed_agree(packed, dev, mlp, sub=4)
             phase_closed_loop(8, dev, args.seed, mlp)
             phase_mission("three_qd_ndp", ("--cpu",), n_ticks=3)
             phase_mission("three_qd_ndp, kernels", ("--cpu",), n_ticks=3)
+            phase_thrust_mission(cpu=True, n_ticks=3)
             phase_daemons(dev, small=True)
             packed = ControllerDaemon(f"smoke_{uuid.uuid4().hex[:8]}", solver="packed", device=dev)
             odom = np.zeros((), qb.ODOMETRY)
@@ -1350,6 +1470,7 @@ def main():
         phase_agree(two, dev, mlp)
         per = phase_path(65536, dev, args.seed, mlp, "per-iteration")
         lqr = phase_path(65536, dev, args.seed, mlp, "per-iteration LQR")
+        tensor_lin = phase_tensor_lin(65536, dev, args.seed, mlp)
         packed = phase_path(65536, dev, args.seed, mlp, "pallas_packed")
         phase_packed_agree(packed, dev, mlp)
         phase_closed_loop(65536, dev, args.seed, mlp)
@@ -1357,9 +1478,13 @@ def main():
         kernels += phase_kernels_two_kernel(two, per, mlp)
         kernels += phase_kernels_sweep(lqr, mlp)
         kernels += phase_kernels_packed(packed, mlp)
-        del main_, two, per, lqr, packed
+        for k in kernels:  # the launches of the tensor-op linearizer's paths
+            name = next(n for n, fn in KERNELS.items() if fn.__name__ == k["name"])
+            k["launches_tensor_lin"] = {p: r["launches"][name] for p, r in tensor_lin.items()}
+        del main_, two, per, lqr, packed, tensor_lin
         for name in MISSIONS:
             phase_mission(name)
+        phase_thrust_mission()
         daemon, c, k1 = phase_daemons(dev)
         kernels[0] |= phase_daemon_kernel(daemon, dev, mlp, args.seed)
         kernels[0]["launches_per_daemon_tick"] = (k1 - 1) / c["ticks"]  # less the warm-up's

@@ -10,6 +10,7 @@ roslaunch topologies (`ndp_nmpc/launch/*.launch`):
   python -m ndp_nmpc_qd_tpu_torch mission three_qd_ndp   # three_qd_ndp_nmpc.launch
   python -m ndp_nmpc_qd_tpu_torch mission four_qd        # four_qd_nmpc.launch
   python -m ndp_nmpc_qd_tpu_torch mission swarm --drones 65536 [--formation]
+  python -m ndp_nmpc_qd_tpu_torch mission one_qd --controller thrust
 
 Each run holds the calibration point for `--hold-ticks` ticks, then tracks
 the figure-eight (the `eight_high_dyn.yaml` role) for `--track-secs`, and
@@ -28,6 +29,12 @@ the kernel flags do not apply; `--f64 --cpu` runs it in float64.
 `--backend` names the controller in place of that rule (a flag the JAX CLI
 does not have); the defaults then follow the controller it names. The
 result records the backend and the flags as the solver applied them.
+
+`--controller thrust` flies the motor-thrust NMPC (13 states, 4 rotor
+thrusts, `sim/thrust_loop.py`) on the one_qd topology only, as the JAX CLI
+(`ndp_nmpc_qd_tpu/cli.py:133-145`): its dense controller cold at 12 QP
+iterations (`--qp-iters` overrides them), no kernel, so the kernel flags do
+not apply; the result's backend reads "jax", the scan family.
 
 The runtime daemons over the shared-memory bus (the rosrun analog, JAX
 `run_node`), each printing one JSON line:
@@ -79,17 +86,19 @@ def run_mission(args, record_traces: bool = False, n_ticks: int | None = None):
     """Build and fly one mission (its first `n_ticks` ticks where given).
     Returns (result, run): the JSON-ready result, and run = dict(metrics,
     traces, state) with the episode's tensors (traces with
-    `record_traces`: x, u0, throttle over the ticks)."""
+    `record_traces`: x, u0, throttle over the ticks; x, u0 for the thrust
+    controller)."""
     from . import resolve_device
     from .models.downwash_mlp import load_npz
     from .params import NdpNmpcConfig, SimParams
     from .sim.closed_loop import make_episode, resolve_backend
 
-    if args.controller == "thrust":
-        raise NotImplementedError(
-            "--controller thrust (the motor-thrust NMPC) is not ported yet: ROADMAP Queue 1 "
-            "item 10"
-        )
+    thrust = args.controller == "thrust"
+    if thrust and args.topology != "one_qd":
+        raise ValueError("--controller thrust supports the one_qd topology")
+    if thrust and args.backend not in ("auto", "jax"):
+        raise ValueError("--controller thrust runs its own dense controller; --backend "
+                         f"{args.backend} does not apply")
     if args.f64 and not args.cpu:
         raise NotImplementedError(
             "--f64 runs on the CPU only (--cpu): the CUDA kernels are f32, and f64 exists "
@@ -109,7 +118,7 @@ def run_mission(args, record_traces: bool = False, n_ticks: int | None = None):
     formation = args.topology == "swarm" and args.formation
     if formation:
         n_total = max(args.drones // 3, 1) * 3
-    backend = resolve_backend(args.backend, n_total, dev)
+    backend = "jax" if thrust else resolve_backend(args.backend, n_total, dev)
     use_pallas = backend == "pallas"
     if args.qp_iters is None:
         args.qp_iters = 3 if use_pallas else 12
@@ -122,8 +131,8 @@ def run_mission(args, record_traces: bool = False, n_ticks: int | None = None):
         from .traj.scenarios import load_scenario
 
         trajs = [load_scenario(s, dtype=dtype) for s in args.scenario]
-        if len(trajs) > 1:
-            assert topology.get("independent"), "multiple --scenario requires four_qd or swarm"
+        if len(trajs) > 1 and not topology.get("independent"):
+            raise ValueError("multiple --scenario requires four_qd or swarm")
         traj = trajs if len(trajs) > 1 else trajs[0]
     else:
         traj = build_eight(dtype=dtype)
@@ -135,7 +144,14 @@ def run_mission(args, record_traces: bool = False, n_ticks: int | None = None):
         solver_whole_step=args.whole_step, solver_backend=backend, recover=args.recover,
         hold_ticks=args.hold_ticks, record_traces=record_traces, device=dev,
     )
-    if formation:
+    if thrust:
+        from .sim.thrust_loop import make_thrust_episode
+
+        init_fn, _, run_fn = make_thrust_episode(
+            cfg, traj, n_drones=1, qp_iters=args.qp_iters, hold_ticks=args.hold_ticks,
+            record_traces=record_traces, device=dev,
+        )
+    elif formation:
         from .sim.swarm_scale import make_formation_swarm
 
         n_swarms = max(args.drones // 3, 1)

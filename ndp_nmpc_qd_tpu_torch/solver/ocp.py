@@ -17,7 +17,8 @@ cost scaling s_i = T/N for the intermediate stages, 1 for the terminal.
 The JAX package vmaps the per-stage terms over the stages and the scenario
 batch; here both are batch dimensions written out. The Jacobians are the
 port's own forward-mode tangents: the RK4 step carries its 14 tangent
-columns through the closed-form Jacobian of the dynamics (what `jax.jacfwd`
+columns through the closed-form Jacobian of the dynamics
+(`rk4_with_tangents`, what `jax.jacfwd`
 of the step computes, in a few batched products instead of one pass per
 column; `ops.kernels.linearize.rk4_jvp` on element tuples computes the
 same tangents in more, smaller ops, which made the scan mission's tick
@@ -77,9 +78,11 @@ def stage_output(x: torch.Tensor, u: torch.Tensor, q_ref: torch.Tensor) -> torch
 
 
 def terminal_output(x: torch.Tensor, q_ref: torch.Tensor) -> torch.Tensor:
-    """acados cost_y_expr_e: the state part only (..., 10)."""
+    """acados cost_y_expr_e: the state part only (..., nx). States past the
+    quaternion (the motor-thrust model's body rates, `ocp_thrust.py`) are
+    tracked as they are."""
     qe = quat.error_vector(x[..., 6:10], q_ref)
-    return torch.cat([x[..., 0:6], q_ref[..., 0:1], qe + q_ref[..., 1:4]], dim=-1)
+    return torch.cat([x[..., 0:6], q_ref[..., 0:1], qe + q_ref[..., 1:4], x[..., 10:]], dim=-1)
 
 
 def _f_jacobian(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -113,52 +116,72 @@ def _f_jacobian(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return J
 
 
-def make_discrete_jacobians(ocp: OcpParams, vehicle: VehicleParams, with_disturbance: bool):
-    """phi_jac(x, u, fd) -> (Phi(x, u, fd), A (..., 10, 10), B (..., 10, 4)):
-    the RK4 step of `ops.integrators.rk4_step` (the same arithmetic for
-    Phi) with its forward-mode tangents carried along, as `jax.jacfwd` of
-    the step computes them. x (..., 10), u (..., 4), fd (..., 3)."""
-    h = ocp.th_pred / ocp.erk_substeps
+def rk4_with_tangents(f, f_jac, x, u, fd, dt: float, substeps: int, x_cols=slice(None)):
+    """The RK4 step of `ops.integrators.rk4_step` (the same arithmetic for
+    Phi) with forward-mode tangents carried along, as `jax.jacfwd` of the
+    step computes them: returns (Phi(x, u, fd), dPhi/dx[..., x_cols]
+    (..., nx, ncols), dPhi/du (..., nx, nu)). f(x, u, fd) is the continuous
+    dynamics and f_jac(x, u) its Jacobian d xdot / d (x, u) (..., nx,
+    nx + nu); fd is a constant input. `x_cols` (a slice) picks the state
+    columns whose tangents are carried: the structure-sparse linearizer
+    carries only the 4 quaternion columns."""
+    nx, nu = x.shape[-1], u.shape[-1]
+    nc = len(range(nx)[x_cols])
+    h = dt / substeps
+
+    def f_tan(x, T):
+        """(xdot, d xdot along the tangents T (..., nx, nc + nu))."""
+        J = f_jac(x, u)
+        dT = J[..., :nx] @ T
+        dT[..., nc:] += J[..., nx:]
+        return f(x, u, fd), dT
+
+    T = x.new_zeros(x.shape + (nc + nu,))
+    T[..., x_cols, :nc] = torch.eye(nc, dtype=x.dtype, device=x.device)
+    for _ in range(substeps):
+        k1, t1 = f_tan(x, T)
+        k2, t2 = f_tan(x + 0.5 * h * k1, T + 0.5 * h * t1)
+        k3, t3 = f_tan(x + 0.5 * h * k2, T + 0.5 * h * t2)
+        k4, t4 = f_tan(x + h * k3, T + h * t3)
+        x = x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+        T = T + (h / 6.0) * (t1 + 2.0 * t2 + 2.0 * t3 + t4)
+    return x, T[..., :nc], T[..., nc:]
+
+
+def make_discrete_jacobians(
+    ocp: OcpParams, vehicle: VehicleParams, with_disturbance: bool, x_cols=slice(None),
+):
+    """phi_jac(x, u, fd) -> (Phi(x, u, fd), A (..., 10, ncols), B (..., 10,
+    4)) of the body-rate model (`rk4_with_tangents`): A holds the columns
+    `x_cols` of dPhi/dx, all 10 by default. x (..., 10), u (..., 4), fd
+    (..., 3)."""
 
     def f(x, u, fd):
         return body_rate_dynamics(
             x, u, fd if with_disturbance else None, mass=vehicle.mass, gravity=vehicle.gravity,
         )
 
-    def f_tan(x, u, fd, T):
-        """(xdot, d xdot along the tangents T (..., 10, 14) of x)."""
-        J = _f_jacobian(x, u)
-        dT = J[..., :NX] @ T
-        dT[..., NX:] += J[..., NX:]
-        return f(x, u, fd), dT
-
     def phi_jac(x, u, fd):
-        T = x.new_zeros(x.shape + (NX + NU,))
-        T[..., :NX] = torch.eye(NX, dtype=x.dtype, device=x.device)
-        for _ in range(ocp.erk_substeps):
-            k1, t1 = f_tan(x, u, fd, T)
-            k2, t2 = f_tan(x + 0.5 * h * k1, u, fd, T + 0.5 * h * t1)
-            k3, t3 = f_tan(x + 0.5 * h * k2, u, fd, T + 0.5 * h * t2)
-            k4, t4 = f_tan(x + h * k3, u, fd, T + h * t3)
-            x = x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
-            T = T + (h / 6.0) * (t1 + 2.0 * t2 + 2.0 * t3 + t4)
-        return x, T[..., :NX], T[..., NX:]
+        return rk4_with_tangents(f, _f_jacobian, x, u, fd, ocp.th_pred, ocp.erk_substeps,
+                                 x_cols)
 
     return phi_jac
 
 
 def gn_state_terms(x: torch.Tensor, xr: torch.Tensor, q_diag: torch.Tensor, stage_scale: float):
-    """Gauss-Newton Hessian s J^T Q J (..., N+1, 10, 10) and gradient
-    s J^T Q e (..., N+1, 10) of the state residual e = y_e(x) - xr at every
-    node of the horizon x (..., N+1, 10), with the acados cost scaling s:
+    """Gauss-Newton Hessian s J^T Q J (..., N+1, nx, nx) and gradient
+    s J^T Q e (..., N+1, nx) of the state residual e = y_e(x) - xr at every
+    node of the horizon x (..., N+1, nx), with the acados cost scaling s:
     stage_scale for the stages, 1 for the terminal. J is the residual's
-    closed-form Jacobian: the identity on position and velocity, a zero row
-    for qwr and the 3x4 quaternion-error block Gq
-    (`nmpc_body_rate_ctl.py:164-166`; qe is linear in q), i.e. the JAX
-    package's `jax.jacfwd` of the residual and `ocp_packed._gq`."""
+    closed-form Jacobian: the identity on position, velocity and any state
+    past the quaternion, a zero row for qwr and the 3x4 quaternion-error
+    block Gq (`nmpc_body_rate_ctl.py:164-166`; qe is linear in q), i.e. the
+    JAX package's `jax.jacfwd` of the residual and `ocp_packed._gq`."""
+    nx = x.shape[-1]
     qwr, qxr, qyr, qzr = xr[..., 6:10].unbind(-1)
-    J = xr.new_zeros(xr.shape[:-1] + (NX, NX))
+    J = xr.new_zeros(xr.shape[:-1] + (nx, nx))
     J[..., 0:6, 0:6] = torch.eye(6, dtype=xr.dtype, device=xr.device)
+    J[..., 10:, 10:] = torch.eye(nx - 10, dtype=xr.dtype, device=xr.device)
     J[..., 7:10, 6:10] = torch.stack([
         torch.stack([-qxr, qwr, -qzr, qyr], dim=-1),
         torch.stack([-qyr, qzr, qwr, -qxr], dim=-1),

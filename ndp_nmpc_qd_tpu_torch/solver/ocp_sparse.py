@@ -1,8 +1,9 @@
-"""Structure-sparse OCP data: the stage payload, its linearizer, and the
-one-kernel control step.
+"""Structure-sparse OCP data: the stage payload, its two linearizers, and
+the one-kernel control step.
 
 Port of `ndp_nmpc_qd_tpu/solver/ocp_sparse.py` (`SparseQp`, `SparseQpConsts`,
-`make_linearizer_pallas`, `make_whole_step`). The payload's fields and
+`a_dense_from_sparse`, `b_dense_from_sparse`, `make_linearizer_pallas`,
+`make_ocp_functions_sparse`, `make_whole_step`). The payload's fields and
 their structure are described in the JAX module's docstring.
 """
 
@@ -13,11 +14,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import const
+from ..ops import quat
 from ..ops.kernels.linearize import linearize_stage_data
 from ..ops.kernels.step_whole import control_step_whole
 from ..ops.layout import pack
 from ..params import OcpParams, VehicleParams
-from .ocp import BIG
+from .ocp import BIG, make_discrete_jacobians, make_ocp_functions
 
 
 class SparseQp(NamedTuple):
@@ -45,6 +48,31 @@ class SparseQpConsts(NamedTuple):
     diag6_stage: tuple  # stage_scale * q_diag[:6]
     diag6_term: tuple  # q_diag[:6] (terminal: cost scaling 1)
     rdiag_stage: tuple  # stage_scale * r_diag
+
+
+def a_dense_from_sparse(a40: torch.Tensor, h: float) -> torch.Tensor:
+    """(..., 40) sparse stage A -> (..., 10, 10) dense: [[I, h I, Apq],
+    [0, I, Avq], [0, 0, Aqq]]."""
+    batch, dt, dev = a40.shape[:-1], a40.dtype, a40.device
+    eye3 = torch.eye(3, dtype=dt, device=dev).expand(batch + (3, 3))
+    z33 = a40.new_zeros(batch + (3, 3))
+    z43 = a40.new_zeros(batch + (4, 3))
+    top = torch.cat([eye3, h * eye3, a40[..., 0:12].reshape(batch + (3, 4))], dim=-1)
+    mid = torch.cat([z33, eye3, a40[..., 12:24].reshape(batch + (3, 4))], dim=-1)
+    bot = torch.cat([z43, z43, a40[..., 24:40].reshape(batch + (4, 4))], dim=-1)
+    return torch.cat([top, mid, bot], dim=-2)
+
+
+def b_dense_from_sparse(b30: torch.Tensor, bc6: torch.Tensor) -> torch.Tensor:
+    """(..., 30) omega columns + (..., 6) collective columns -> (..., 10, 4)
+    dense, in bc6's dtype."""
+    batch = b30.shape[:-1]
+    b30 = b30.to(bc6.dtype)
+    bp = torch.cat([b30[..., 0:9].reshape(batch + (3, 3)), bc6[..., 0:3, None]], dim=-1)
+    bv = torch.cat([b30[..., 9:18].reshape(batch + (3, 3)), bc6[..., 3:6, None]], dim=-1)
+    bq = torch.cat([b30[..., 18:30].reshape(batch + (4, 3)), bc6.new_zeros(batch + (4, 1))],
+                   dim=-1)
+    return torch.cat([bp, bv, bq], dim=-2)
 
 
 def _floats(v):
@@ -139,6 +167,95 @@ def make_linearizer(
         return SparseQp(*fields), dx0_p
 
     return linearize_sparse, sparse_consts(ocp)
+
+
+def _hq_gxq(q_ref, qe, wq):
+    """Closed-form Hq = Gq^T diag(wq) Gq (..., 16) and Gq^T (wq * qe) (..., 4)
+    as 3-term sums of elementwise products (the JAX `_hq_gxq`); q_ref (...,
+    4), qe (..., 3), wq three floats. Gq's columns: `_gq`
+    (`nmpc_body_rate_ctl.py:164-166`)."""
+    qw, qx, qy, qz = q_ref.unbind(-1)
+    cols = ((-qx, -qy, -qz), (qw, qz, -qy), (-qz, qw, qx), (qy, -qx, qw))
+    w1, w2, w3 = wq
+    hq = torch.stack([
+        w1 * cols[i][0] * cols[j][0] + w2 * cols[i][1] * cols[j][1]
+        + w3 * cols[i][2] * cols[j][2]
+        for i in range(4) for j in range(4)
+    ], dim=-1)
+    v0, v1, v2 = w1 * qe[..., 0], w2 * qe[..., 1], w3 * qe[..., 2]
+    gxq = torch.stack([cols[i][0] * v0 + cols[i][1] * v1 + cols[i][2] * v2 for i in range(4)],
+                      dim=-1)
+    return hq, gxq
+
+
+def make_ocp_functions_sparse(
+    ocp: OcpParams, vehicle: VehicleParams, with_disturbance: bool,
+    *, jac_bf16: bool = False,
+):
+    """The stage linearization in tensor ops, the JAX package's independent
+    formulation of what K3 computes (`fused_lin=False`).
+
+    Returns (linearize_sparse, consts, phi) with `make_linearizer`'s
+    contract: linearize_sparse(x_bar, u_bar, xr, ur, f_dist, x0) ->
+    (SparseQp, dx0_p (1, 10, B)) takes batch-first inputs (any B) and
+    returns the payload in kernel layout. Every stage of every scenario is
+    one batch element of the same ops: the RK4 step carries the 4 + 4
+    tangent columns of the quaternion and the controls
+    (`ocp.rk4_with_tangents`), and the quaternion Hessian block and gradient
+    are the closed-form 3-term sums (`_hq_gxq`). `jac_bf16` stores hq, a and
+    b in bfloat16; bc, gx, gu and r stay full precision (the JAX docstring
+    says why)."""
+    N = ocp.N_node
+    stage_scale = ocp.th_pred if ocp.scale_stage_cost_by_dt else 1.0
+    phi_jac = make_discrete_jacobians(ocp, vehicle, with_disturbance, x_cols=slice(6, 10))
+    phi = make_ocp_functions(ocp, vehicle, with_disturbance)[1]
+    q_diag = _floats(ocp.q_diag())
+    r_diag = _floats(ocp.r_diag())
+    wq = q_diag[7:10]
+    boxes = tuple(_floats(v) for v in (ocp.u_lower(), ocp.u_upper(), ocp.v_lower(),
+                                       ocp.v_upper()))
+
+    def linearize_sparse(x_bar, u_bar, xr, ur, f_dist, x0):
+        dt, dev = x_bar.dtype, x_bar.device
+        B = x_bar.shape[0]
+        u_bar, xr, ur, x0 = (t.to(dt) for t in (u_bar, xr, ur, x0))
+        if f_dist is None:
+            f_dist = torch.zeros((B, N + 1, 3), dtype=dt, device=dev)
+        c = lambda v: const(v, dt, dev)
+
+        # cost terms at every node; the terminal's is unscaled
+        q_ref = xr[..., 6:10]
+        hq, gxq = _hq_gxq(q_ref, quat.error_vector(x_bar[..., 6:10], q_ref), wq)
+        q6, e6 = c(q_diag[:6]), x_bar[..., 0:6] - xr[..., 0:6]
+        hq = torch.cat([stage_scale * hq[:, :N], hq[:, N:]], dim=1)
+        gx = torch.cat([
+            torch.cat([stage_scale * q6 * e6[:, :N], stage_scale * gxq[:, :N]], dim=-1),
+            torch.cat([q6 * e6[:, N:], gxq[:, N:]], dim=-1),
+        ], dim=1)
+        gu = stage_scale * c(r_diag) * (u_bar - ur)
+
+        # the quaternion columns of dPhi/dx (the others are constants) and dPhi/du
+        x_next, Aq, Bm = phi_jac(x_bar[:, :N], u_bar, f_dist[:, :N])
+        a40 = Aq.reshape(B, N, 40)  # [Apq, Avq, Aqq] row-major
+        b30 = Bm[..., 0:3].reshape(B, N, 30)  # [Bp, Bv, Bq] omega columns
+        bc6 = Bm[..., 0:6, 3]
+
+        u_lo, u_hi, v_lo, v_hi = (c(v) for v in boxes)
+        inner = torch.zeros((N + 1, 1), dtype=torch.bool, device=dev)
+        inner[1:N] = True
+        big = torch.full((), BIG, dtype=dt, device=dev)
+        vbar = x_bar[..., 3:6]
+        jd = torch.bfloat16 if jac_bf16 else dt
+        qp = SparseQp(
+            hq=pack(hq).to(jd), gx=pack(gx), gu=pack(gu), a=pack(a40).to(jd),
+            b=pack(b30).to(jd), bc=pack(bc6), r=pack(x_next - x_bar[:, 1:]),
+            lu=pack(u_lo - u_bar), uu=pack(u_hi - u_bar),
+            lx=pack(torch.where(inner, v_lo - vbar, -big)),
+            ux=pack(torch.where(inner, v_hi - vbar, big)),
+        )
+        return qp, pack((x0 - x_bar[:, 0])[:, None])
+
+    return linearize_sparse, sparse_consts(ocp), phi
 
 
 def make_whole_step(

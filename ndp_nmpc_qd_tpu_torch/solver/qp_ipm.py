@@ -130,7 +130,8 @@ def riccati_solve(
     Hxx = qp.Hxx.clone()
     Hxx.diagonal(dim1=-2, dim2=-1)[..., BX] += sig_x_b
     Huu = qp.Huu + torch.diag_embed(sig_u)
-    # per stage: [A B r] (10 x 15) and [[Hxx Hxu gx] [Hxu^T Huu gu]] (14 x 15)
+    # per stage: [A B r] (nx x (nx + nu + 1)) and [[Hxx Hxu gx] [Hxu^T Huu gu]]
+    # ((nx + nu) x (nx + nu + 1)); nx is 10, or 13 for the motor-thrust OCP
     ABr = torch.cat([qp.A, qp.B, rhat[..., None]], dim=-1)
     Hg = torch.cat([
         torch.cat([Hxx[:, :N], qp.Hxu, ghat_x[:, :N, :, None]], dim=-1),

@@ -34,7 +34,7 @@ from ..ops.layout import pack, unpack
 from ..params import OcpParams, VehicleParams
 from .ocp import make_ocp_functions
 from .ocp_packed import make_ocp_functions_packed
-from .ocp_sparse import make_linearizer, make_whole_step
+from .ocp_sparse import make_linearizer, make_ocp_functions_sparse, make_whole_step
 from .qp_ipm import solve_qp
 from .qp_ipm_packed import ipm_packed
 from .qp_ipm_sparse import IpmWarm, cold_warm, ipm_sparse
@@ -190,7 +190,10 @@ def make_batched_rti_controller(
       (K1), which implies the zero-control start, so `lqr_start` and
       `whole_ipm` do not change it.
     - `whole_step=False` (or `packed_state=False`, where the JAX package
-      ignores `whole_step` too): the linearization (K3), then with
+      ignores `whole_step` too): the linearization (K3, or with
+      `fused_lin=False` the tensor-op linearizer
+      `ocp_sparse.make_ocp_functions_sparse`, which needs the batch-first
+      state: `packed_state=True` with it raises ValueError), then with
       `whole_ipm=True` the whole IPM in one launch (K2), with the axpy
       folded into it when `packed_state=True`; with `whole_ipm=False` one
       glue-fused iteration (K4 + K5) per IPM iteration, from the clipped-LQR
@@ -202,8 +205,7 @@ def make_batched_rti_controller(
       and unpacks the deltas every tick. The port does not pad B.
 
     `warm_start` carries the QP duals across ticks; `jac_bf16` stores the
-    curvature payloads in bfloat16. Not ported yet, and raising:
-    `fused_lin=False`.
+    curvature payloads in bfloat16.
 
     Runs on `device`, by default the card; without a card and without an
     explicit device it raises.
@@ -254,11 +256,8 @@ def make_batched_rti_controller(
         return RtiController(reset_plain, update_dense, ocp, vehicle, with_disturbance,
                              device=dev)
 
-    if not fused_lin:
-        raise NotImplementedError(
-            "fused_lin=False (the jnp sparse linearizer) is not ported yet: "
-            "ROADMAP Queue 1 item 10"
-        )
+    if packed_state and not fused_lin:
+        raise ValueError("packed_state requires the fused linearizer (fused_lin=True)")
     one_kernel = packed_state and whole_step
     N = ocp.N_node
 
@@ -299,7 +298,8 @@ def make_batched_rti_controller(
             layout="kernel", device=dev,
         )
 
-    linearize, sp_consts = make_linearizer(ocp, vehicle, with_disturbance, jac_bf16=jac_bf16)
+    make_lin = make_linearizer if fused_lin else make_ocp_functions_sparse
+    linearize, sp_consts = make_lin(ocp, vehicle, with_disturbance, jac_bf16=jac_bf16)[:2]
 
     def solve(qp, dx0_p, warm, xu_bar=None):
         return ipm_sparse(

@@ -55,6 +55,34 @@ def test_default_device_without_a_card_raises(monkeypatch):
         )
 
 
+@pytest.mark.parametrize("entry", ["thrust_controller", "thrust_episode", "tensor_lin"])
+def test_new_entry_points_without_a_card_raise(monkeypatch, entry):
+    """The motor-thrust controller and its episode, and the tensor-op
+    linearizer's controller run on the card by default: without one, and
+    without an explicit device, they raise."""
+    from ndp_nmpc_qd_tpu_torch import cli
+    from ndp_nmpc_qd_tpu_torch.sim.thrust_loop import make_thrust_episode
+    from ndp_nmpc_qd_tpu_torch.solver.ocp_thrust import make_thrust_rti_controller
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = NdpNmpcConfig()
+    build = {
+        "thrust_controller": lambda: make_thrust_rti_controller(cfg.ocp, cfg.vehicle),
+        "thrust_episode": lambda: make_thrust_episode(cfg, cli.build_eight()),
+        "tensor_lin": lambda: rti.make_batched_rti_controller(cfg.ocp, cfg.vehicle,
+                                                               fused_lin=False),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+
+
+def test_no_raise_cites_item_10():
+    """Queue 1 item 10 (the tensor-op linearizer, the motor-thrust NMPC) is
+    ported: no message of the package cites it."""
+    for path in sorted((ROOT / "ndp_nmpc_qd_tpu_torch").rglob("*.py")):
+        assert "item 10" not in path.read_text(), path
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     cfg = NdpNmpcConfig()
     N, B = cfg.ocp.N_node, 3
@@ -209,14 +237,13 @@ def test_packed_wrappers_take_the_plain_versions_on_cpu_tensors():
 
 @pytest.mark.parametrize("argv, error, match", [
     (["serve", "--max-ticks", "1"], RuntimeError, "no CUDA device"),
-    (["mission", "one_qd", "--cpu", "--f64", "--controller", "thrust"], NotImplementedError,
-     "ROADMAP Queue 1 item"),
+    (["mission", "one_qd", "--controller", "thrust"], RuntimeError, "no CUDA device"),
 ])
 def test_unported_cli_commands_raise(argv, error, match, monkeypatch):
-    """The thrust controller (ROADMAP Queue 1 item 10) raises instead of
-    running something else. The runtime daemons are ported: they run on the
-    card or with --cpu, and without a card `serve` fails instead of running
-    on the CPU."""
+    """The commands ported since they raised here run on the card or with
+    --cpu: without a card `serve` and the thrust mission (ROADMAP Queue 1
+    item 10, which raised until it was ported; `test_torch_thrust_episode.py`
+    flies it with --cpu) fail instead of running on the CPU."""
     from ndp_nmpc_qd_tpu_torch.cli import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -139,13 +139,16 @@ def test_whole_step_controller_matches_jax():
     dict(cli=["simnode"], no_card=True), dict(cli=["send"], no_card=True),
 ])
 def test_unported_combinations_raise(bad, monkeypatch):
-    """Options that are not ported yet raise, naming their ROADMAP item:
-    the jnp sparse linearizer (`fused_lin=False`) and the mission CLI's
-    thrust controller. The runtime daemons `simnode` and `send` are ported:
-    they run on the card or with --cpu, and without a card they fail
-    instead of running on the CPU. (The per-iteration path's clipped-LQR
-    start and the scan and legacy dense backends, once cases here, run
-    now.)"""
+    """Combinations the JAX package refuses raise ValueError, as its asserts
+    do (`cli.py:139-141`, `rti.py:296-298`): the thrust controller on
+    another topology than one_qd, and the tensor-op linearizer
+    (`fused_lin=False`) with the kernel-layout state. Both options are
+    ported (`test_torch_thrust*.py`, `test_torch_sparse_lin.py`); they
+    raised NotImplementedError here until then. The runtime daemons
+    `simnode` and `send` are ported: they run on the card or with --cpu,
+    and without a card they fail instead of running on the CPU. (The
+    per-iteration path's clipped-LQR start and the scan and legacy dense
+    backends, once cases here, run now.)"""
     if "cli" in bad:
         from ndp_nmpc_qd_tpu_torch.cli import main
 
@@ -154,11 +157,11 @@ def test_unported_combinations_raise(bad, monkeypatch):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 main(bad["cli"])
             return
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="one_qd topology"):
             main(bad["cli"])
         return
     cfg = PortConfig()
     kw = dict(packed_state=True, whole_step=True, device="cpu")
     kw.update(bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="packed_state requires the fused linearizer"):
         t_rti.make_batched_rti_controller(cfg.ocp, cfg.vehicle, **kw)
