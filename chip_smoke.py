@@ -108,16 +108,36 @@ Phases, one line each; any failure exits non-zero before the last line:
       plain version at `check_pair`'s tolerances, and timed; one deployed
       `update` at B=1 and one at B=65536 under
       `torch.cuda.set_sync_debug_mode("error")` (no host sync inside it).
+11. train: the downwash MLP's trainer at full width (6-128-64-128-3) from
+   a seeded `init_mlp`, 200 full-batch epochs of Adam at lr 1e-4 with the
+   spectral-norm projection to 4, n_train 16384 (the JAX tool's default),
+   on the card and the same steps in f32 on the CPU: every epoch's loss
+   and the weights within the bounds stated at `TRAIN_LOSS_RTOL`, the loss
+   dropping, sigma_max <= 4 + 1e-3, epochs/s; the trained net's forecast
+   into one deployed tick (one K1 launch).
+12. envelope: `tools/qp_envelope_torch.py --iters 3 --whole-ipm --bf16`,
+   cold and `--warm` (K3 + K2), d = 1 ... 100 m, and the same sweep on the
+   deployed K1 controller: every scenario healthy; then the closed loop
+   from 50 m (`tests/test_far_regime.py:74-99`: 500 ticks of the
+   per-scenario scan controller at qp_iters 8, float64): the setpoint
+   within 0.05 m, the command never outside the actuator box.
+13. validate: `tools/validate_backends_torch.py --warm-iters 3
+   --whole-step`, 300 ticks (200 tracking): the kernels cold@12 and warm@3
+   from the clipped-LQR start and the deployed K1 against the scan
+   controller, max control deviation below 1e-3 (`BASELINE.md`).
+14. ipm_whole: `tools/bench_ipm_whole_torch.py` at B=65536, 6 iterations:
+   K2 against K4 + K5 on one QP batch, element by element, both timed.
    Then the kernels line (K1 also with its B=1 and B=64 times and its
    launches a daemon tick).
-Every path, mission and daemon run sets its kernels' launch counts to 0
-just before it is driven and reads them just after. The last line is
-{"ok": true, "device": {...}}.
+Every path, mission, daemon run and tool phase sets its kernels' launch
+counts to 0 just before it is driven and reads them just after. The last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import os
@@ -134,7 +154,9 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ndp_nmpc_qd_tpu_torch import cli
-from ndp_nmpc_qd_tpu_torch.models.downwash_mlp import load_npz, predict_downwash
+from ndp_nmpc_qd_tpu_torch.models.downwash_mlp import (
+    init_mlp, load_npz, make_trainer, predict_downwash,
+)
 from ndp_nmpc_qd_tpu_torch.models.quadrotor import (
     body_rate_dynamics, hover_input, hover_state,
 )
@@ -156,12 +178,13 @@ from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import (
 from ndp_nmpc_qd_tpu_torch.solver.ocp_packed import make_ocp_functions_packed
 from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import IpmWarm, cold_warm, ipm_sparse
 from ndp_nmpc_qd_tpu_torch.solver.rti import (
-    RtiState, first_control_and_health, make_batched_rti_controller,
+    RtiState, first_control_and_health, make_batched_rti_controller, make_rti_controller,
 )
 from ndp_nmpc_qd_tpu_torch.traj.polyopt import fit_waypoints
 from ndp_nmpc_qd_tpu_torch.utils.roofline import F32_FLOPS_PER_S, HBM_BYTES_PER_S
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
+TOOLS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
 ASSET = os.path.join(ASSETS, "downwash_analytic_sn4.npz")
 GOLDEN = os.path.join(ASSETS, "mission_golden_three_qd_ndp.npz")
 THRUST_GOLDEN = os.path.join(ASSETS, "mission_golden_one_qd_thrust.npz")
@@ -1420,6 +1443,232 @@ def phase_daemon_kernel(daemon, dev, mlp, seed, B_batch=64):
     return out
 
 
+def tool(name):
+    """A port tool, `tools/<name>.py`, as a module."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(TOOLS, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def count_launches(fn, *args, **kwargs):
+    """Run fn with every kernel's count set to 0 just before; returns
+    (fn's result, {kernel: launches} read just after)."""
+    for k in KERNELS.values():
+        k.launches = 0
+    out = fn(*args, **kwargs)
+    return out, {name: k.launches for name, k in KERNELS.items()}
+
+
+def launched(launches):
+    return ", ".join(f"{k} {v}" for k, v in launches.items() if v) or "none"
+
+
+def check_launches(tag, got, want, dev):
+    """On the card, the launches a phase made are exactly `want` (kernel ->
+    count; the others 0); on the CPU none."""
+    want = {k: want.get(k, 0) if dev.type == "cuda" else 0 for k in KERNELS}
+    check(got == want, f"{tag} launched {got}, want {want}")
+
+
+# Phase 11's bounds: the trainer on the card against the same steps on the
+# CPU in f32 (TF32 off), 200 epochs at lr 1e-4. The two differ by the
+# summation order of the products, the reductions and the SVD, and Adam
+# moves every component by about lr a step whatever its gradient's size, so
+# a component whose gradient is near zero can take another sign on the two
+# and the weights part by a few lr over the epochs while the losses agree.
+# Measured on an H100 (700 W): losses 2.72e-6 relative, weights 1.18e-4.
+TRAIN_LOSS_RTOL = 2e-5
+TRAIN_W_ATOL = 5e-4
+
+
+def phase_train(dev, seed, epochs=200, n_train=16384, B=65536):
+    """Phase 11: the downwash MLP's trainer (`make_trainer`: full-batch
+    Adam, MSE, the spectral-norm projection to 4 after every step) at full
+    width (6-128-64-128-3) from `init_mlp`'s seeded init, `epochs` epochs
+    on `n_train` samples of `tools/train_downwash_torch.sample_dataset` (the
+    JAX tool's default size) at lr 1e-4 (the reference's rate), on the card
+    and in f32 on the CPU from the same init: every epoch's loss within
+    TRAIN_LOSS_RTOL of the CPU's, the largest weight difference within
+    TRAIN_W_ATOL, the loss dropping, every weight's sigma_max <= 4 + 1e-3;
+    epochs/s on the card. Then the trained net's bf16 forecast feeds one
+    tick of the deployed step (K1) at B: healthy, one K1 launch."""
+    x, y = tool("train_downwash_torch").sample_dataset(n_train, seed=0)
+    runs = {}
+    for where in (torch.device("cpu"), dev):
+        mlp = init_mlp(torch.Generator().manual_seed(seed), device=where)
+        init_opt, train_step, _ = make_trainer(sn=4.0, lr=1e-4)
+        opt = init_opt(mlp)
+        xt, yt = torch.as_tensor(x, device=where), torch.as_tensor(y, device=where)
+        losses = [train_step(mlp, opt, xt, yt)[2]]
+        sync = torch.cuda.synchronize if where.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(epochs - 1):
+            losses.append(train_step(mlp, opt, xt, yt)[2])
+        sync()
+        rate = (epochs - 1) / (time.perf_counter() - t0)
+        runs[where.type] = (mlp, torch.stack(losses).double().cpu(), rate)
+    (cpu_net, cpu_loss, cpu_rate), (net, loss, rate) = runs["cpu"], runs[dev.type]
+    loss_rel = float(((loss - cpu_loss).abs() / cpu_loss.abs()).max())
+    w_diff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                 for a, b in zip(net.parameters(), cpu_net.parameters()))
+    sigma = max(float(torch.linalg.matrix_norm(layer.weight.detach(), ord=2))
+                for layer in net.layers)
+    print(f"train ({epochs} full-batch epochs, n_train {n_train}, lr 1e-4, SN 4, f32, TF32 off): "
+          f"loss {float(loss[0]):.5f} -> {float(loss[-1]):.5f}; {dev.type} {rate:.1f} epochs/s, "
+          f"cpu {cpu_rate:.1f} epochs/s; max |loss - loss_cpu| / loss_cpu over the epochs "
+          f"{loss_rel:.3g} (bound {TRAIN_LOSS_RTOL:g}); max |w - w_cpu| {w_diff:.3g} (bound "
+          f"{TRAIN_W_ATOL:g}); max sigma_max {sigma:.6f} (bound 4 + 1e-3)")
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train: losses {loss_rel} from the CPU's, relative")
+    check(w_diff <= TRAIN_W_ATOL, f"train: weights {w_diff} from the CPU's")
+    check(float(loss[-1]) < float(loss[0]), "train: the loss did not drop")
+    check(sigma <= 4.0 + 1e-3, f"train: sigma_max {sigma} past the projection")
+
+    x0, xr, ur, other = inputs(B, dev, seed)
+    ctl = controller(dev)
+    st = ctl.reset(xr, ur)
+    f = forecast(net, other, xr, x0, torch.bfloat16)
+    (u0, _, info), launches = count_launches(ctl.update, st, x0, xr, ur, f)
+    n_ok = int(info.ok.sum())
+    print(f"train: the trained net's bf16 forecast (max |f| {float(f.abs().max()):.4f} N) into one "
+          f"deployed tick at B={B}: ok {n_ok}/{B}; launches {launched(launches)}")
+    check(bool(torch.isfinite(u0).all()) and n_ok == B, "train: the forecast's tick is unhealthy")
+    check_launches("train's deployed tick", launches, {"K1": 1}, dev)
+    return {"epochs_per_s": rate, "loss_rel": loss_rel, "w_diff": w_diff}
+
+
+def phase_envelope(dev, max_d=100, recovery_ticks=500):
+    """Phase 12: the far-regime envelope, `tools/qp_envelope_torch.py` at
+    `--iters 3 --whole-ipm --bf16` (K3 + K2), cold and `--warm`, d = 1 ...
+    `max_d` m; the same sweep on the deployed one-kernel controller (K1,
+    warm@3, bf16): every scenario healthy (the JAX package's 100/100,
+    BENCH_DETAILS.json `envelope_at_3_iters`). Then the closed loop from 50
+    m (`tests/test_far_regime.py:74-99`): the per-scenario scan controller
+    at qp_iters 8, float64, `recovery_ticks` ticks through an RK4 plant:
+    the setpoint reached within 0.05 m and the command never outside the
+    actuator box."""
+    qe = tool("qp_envelope_torch")
+    cpu = ["--cpu", "--f32"] if dev.type == "cpu" else []
+    out = {}
+    for tag, flags in (("cold", []), ("warm", ["--warm"])):
+        args = qe.make_parser().parse_args(
+            ["--backend", "pallas", "--iters", "3", "--whole-ipm", "--bf16", "--max-d",
+             str(max_d)] + flags + cpu)
+        res, launches = count_launches(qe.run, args)
+        lines = res.pop("lines")
+        print(f"envelope {tag} (K3 + K2, 3 iterations, bf16): {json.dumps(res)}; launches "
+              f"{launched(launches)}" + "".join("\n" + line for line in lines))
+        check_launches(f"envelope {tag}", launches, {"K3": 1, "K2": 1}, dev)
+        check(res["n_ok"] == res["n"], f"envelope {tag}: {res['n_ok']}/{res['n']} ok, first "
+              f"not ok at {res['first_not_ok_m']} m")
+        out[tag] = res
+    ds = qe.offsets(max_d, 1.0)
+    ctl = controller(dev)
+    res, launches = count_launches(qe.sweep, ctl, ds, torch.float32, dev)
+    s = qe.summary(ds, res)
+    print(f"envelope deployed (K1, warm@3, bf16): {json.dumps(s)}; launches {launched(launches)}"
+          + "".join("\n" + line for line in qe.boundary_lines(ds, res, 1.0)))
+    check_launches("envelope deployed", launches, {"K1": 1}, dev)
+    check(s["n_ok"] == s["n"], f"envelope deployed: {s['n_ok']}/{s['n']} ok, first not ok at "
+          f"{s['first_not_ok_m']} m")
+    out["deployed"] = s
+
+    ocp, veh, f64 = CFG.ocp, CFG.vehicle, torch.float64
+    ctl = make_rti_controller(ocp, veh, qp_iters=8, device=dev)
+    tgt = torch.tensor([0.0, 0.0, 1.0], dtype=f64, device=dev)
+    xr = hover_state(tgt)[None].repeat(N + 1, 1)
+    ur = hover_input(veh, (), f64, dev)[None].repeat(N, 1)
+    plant = make_discrete_dynamics(
+        lambda x, u: body_rate_dynamics(x, u, mass=veh.mass, gravity=veh.gravity),
+        ocp.ts_nmpc, 4)
+    u_lo = torch.tensor(ocp.u_lower(), dtype=f64, device=dev)
+    u_hi = torch.tensor(ocp.u_upper(), dtype=f64, device=dev)
+    x = hover_state(torch.tensor([50.0, 0.0, 1.0], dtype=f64, device=dev))
+    state = ctl.reset(xr, ur)
+    out_of_box = torch.zeros((), dtype=f64, device=dev)
+    not_ok = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(recovery_ticks):
+        u0, state, info = ctl.update(state, x, xr, ur)
+        out_of_box = torch.maximum(out_of_box, torch.maximum(u_lo - u0, u0 - u_hi).max())
+        not_ok += ~info.ok
+        x = plant(x, u0)
+    err = float((x[0:3] - tgt).norm())
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    print(f"envelope: closed loop from 50 m ({recovery_ticks} ticks, scan controller at qp_iters "
+          f"8, f64): |pos - target| {err:.4g} m (bound 0.05); worst excursion of the command past "
+          f"the actuator box {float(out_of_box):.3g} (bound 1e-9); not-ok ticks "
+          f"{int(not_ok)}; {wall * 1e3 / recovery_ticks:.2f} ms a tick; launches "
+          f"{launched(launches)}")
+    check(err < 0.05, f"recovery from 50 m left {err} m")
+    check(float(out_of_box) <= 1e-9, f"recovery from 50 m: command {float(out_of_box)} past "
+          "the actuator box")
+    check_launches("recovery from 50 m", launches, {}, dev)
+    out["recovery"] = {"err_m": err, "not_ok_ticks": int(not_ok)}
+    return out
+
+
+# Phase 13's paths and their launches a tick (the scan controller none)
+VALIDATE = {
+    "jax": {},
+    "pallas": {"K3": 1, "K6": 1, "K7": 1, "K4": 12, "K5": 12},
+    "pallas_warm": {"K3": 1, "K6": 1, "K7": 1, "K4": 3, "K5": 3},
+    "whole_step_bf16": {"K1": 1},
+}
+
+
+def phase_validate(dev, ticks=300, hold_ticks=100):
+    """Phase 13: `tools/validate_backends_torch.py --warm-iters 3
+    --whole-step`, the figure-eight mission (`hold_ticks` hold, then
+    tracking) on the scan controller, the kernels cold@12 and warm@3 from
+    the clipped-LQR start (K3, K6 + K7, K4 + K5 each iteration) and the
+    deployed one-kernel step (K1, warm@3, bf16): each kernel path's max
+    control deviation from the scan controller below 1e-3 (BASELINE.md),
+    its launches exact."""
+    vb = tool("validate_backends_torch")
+    args = vb.make_parser().parse_args(
+        ["--ticks", str(ticks), "--hold-ticks", str(hold_ticks), "--warm-iters", "3",
+         "--whole-step"] + (["--cpu"] if dev.type == "cpu" else []))
+    traces = {}
+    for name, extra in vb.variants(args):
+        traces[name], launches = count_launches(vb.fly, extra, args, dev)
+        metrics, wall = traces[name][2:]
+        print(f"validate {name}: pos RMSE {float(metrics.pos_rmse[0]):.5f} m, ok "
+              f"{bool(metrics.ok.all())}, {wall * 1e3 / ticks:.2f} ms a tick; launches "
+              f"{launched(launches)}")
+        check(bool(metrics.ok.all()), f"validate {name}: not ok")
+        check_launches(f"validate {name}", launches,
+                       {k: v * ticks for k, v in VALIDATE[name].items()}, dev)
+    out = vb.deviations(traces, ticks, 1)
+    print("validate: " + "; ".join(
+        f"{n} max |u - u_scan| {v['max_control_deviation']:.3g}, max divergence "
+        f"{v['max_traj_divergence_m']:.3g} m" for n, v in out.items() if isinstance(v, dict))
+        + f" over {ticks} ticks ({ticks - hold_ticks} tracking; bound {vb.TOLERANCE:g})")
+    check(out["pass"], f"validate: a path's control deviation reached {vb.TOLERANCE}")
+    return out
+
+
+def phase_ipm_whole(dev, B=65536, iters=6, reps=20):
+    """Phase 14: `tools/bench_ipm_whole_torch.py` at B, `iters` IPM
+    iterations: one linearized QP batch (one K3 launch) solved by K2 (the
+    whole IPM) and by K4 + K5 each iteration, cold solves held element by
+    element, then each timed over `reps` solves carrying the duals after
+    one warm-up solve: reps + 2 solves each way."""
+    res, launches = count_launches(tool("bench_ipm_whole_torch").run, B, iters, reps, dev)
+    print(f"ipm_whole (B={B}, {iters} iterations, {res['card']}): K2 {res['whole_ms']:.3f} ms a "
+          f"solve, K4 + K5 {res['per_iter_ms']:.3f} ms ({res['speedup']:.2f}x); cold solves "
+          f"{testing.describe(res['errors'])}; launches {launched(launches)}")
+    check(not res["bad"], f"ipm_whole: {res['bad']} out of tolerance")
+    solves = reps + 2
+    check_launches("ipm_whole", launches,
+                   {"K3": 1, "K2": solves, "K4": solves * iters, "K5": solves * iters}, dev)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--small", action="store_true",
@@ -1458,6 +1707,10 @@ def main():
             packed.run(max_ticks=2)
             NodeTopics.unlink(packed.ns)
             phase_daemon_kernel(packed, dev, mlp, args.seed, B_batch=8)
+            phase_train(dev, args.seed, epochs=3, n_train=256, B=8)
+            phase_envelope(dev, max_d=10)
+            phase_validate(dev, ticks=3, hold_ticks=1)
+            phase_ipm_whole(dev, B=8, iters=2)
             print("rehearsal done: no kernel ran, so no result is printed")
             sys.exit(2)
         phase_build()
@@ -1488,6 +1741,10 @@ def main():
         daemon, c, k1 = phase_daemons(dev)
         kernels[0] |= phase_daemon_kernel(daemon, dev, mlp, args.seed)
         kernels[0]["launches_per_daemon_tick"] = (k1 - 1) / c["ticks"]  # less the warm-up's
+        phase_train(dev, args.seed)
+        phase_envelope(dev)
+        phase_validate(dev)
+        phase_ipm_whole(dev)
         print(json.dumps({"kernels": kernels}))
     except Fail as e:
         print(f"FAILED: {e}", file=sys.stderr)

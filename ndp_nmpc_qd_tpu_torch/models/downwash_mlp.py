@@ -1,13 +1,17 @@
 """Downwash-force MLP: 6 -> 128 -> 64 -> 128 -> 3 ReLU network.
 
-Port of `ndp_nmpc_qd_tpu/models/downwash_mlp.py` (forward pass, gated
-per-horizon forecast and the `.npz` weight format). Its matrix products are
-plain `torch.matmul` calls (cuBLAS on the card), as the JAX package left
-them to XLA: there is no Pallas kernel here to port.
+Port of `ndp_nmpc_qd_tpu/models/downwash_mlp.py`: the forward pass, the
+gated per-horizon forecast, the `.npz` weight format, the conversion of the
+reference's `state_dict` and the trainer (full-batch Adam + MSE + the
+spectral-norm projection after every step, `nn_train.py:138-157`). Its
+matrix products are plain `torch.matmul` calls (cuBLAS on the card) under
+autograd, as the JAX package left them to XLA: there is no Pallas kernel
+here to port.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -53,6 +57,23 @@ class DownwashMlp(nn.Module):
         return h.to(acc)
 
 
+def init_mlp(generator: torch.Generator, sizes: Sequence[int] = LAYER_SIZES, *,
+             dtype=torch.float32, device=None) -> DownwashMlp:
+    """torch nn.Linear's default init, U(+-1/sqrt(fan_in)) for weights and
+    biases, drawn on the CPU from `generator` (layer by layer, weight then
+    bias), so that a seed gives the same net on any device. Placed on
+    `device`, by default the card."""
+    with torch.device("meta"):
+        mlp = DownwashMlp(sizes)
+    mlp = mlp.to_empty(device="cpu")
+    with torch.no_grad():
+        for layer in mlp.layers:
+            bound = 1.0 / math.sqrt(layer.in_features)
+            layer.weight.uniform_(-bound, bound, generator=generator)
+            layer.bias.uniform_(-bound, bound, generator=generator)
+    return mlp.to(dtype=dtype, device=resolve_device(device))
+
+
 def from_numpy(weights, biases, *, dtype=torch.float32, device=None) -> DownwashMlp:
     """Build the net from (out, in) weight and (out,) bias arrays, the JAX
     package's `MlpParams` layout (which is torch's, so nothing transposes).
@@ -74,6 +95,27 @@ def load_npz(path: str, *, dtype=torch.float32, device=None) -> DownwashMlp:
         ws = [data[f"w{i}"] for i in range(n)]
         bs = [data[f"b{i}"] for i in range(n)]
     return from_numpy(ws, bs, dtype=dtype, device=device)
+
+
+def save_npz(mlp: DownwashMlp, path: str) -> None:
+    """Write the `w{i}`/`b{i}` archive that `load_npz` (and the JAX
+    package's) reads."""
+    arrays = {}
+    for i, layer in enumerate(mlp.layers):
+        arrays[f"w{i}"] = layer.weight.detach().cpu().numpy()
+        arrays[f"b{i}"] = layer.bias.detach().cpu().numpy()
+    np.savez(path, **arrays)
+
+
+def load_torch_checkpoint(path: str, *, dtype=torch.float32, device=None) -> DownwashMlp:
+    """The reference's trained `state_dict` (an `nn.Sequential` of Linear and
+    ReLU: keys `0.weight`, `0.bias`, ... `6.bias`) as a `DownwashMlp`. The
+    deployed model is `128-64-128_WBias_SN=4_epoch=20000_test_loss=1.0221`
+    (`downwash_nn.py:15`)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    idx = sorted({int(k.split(".")[0]) for k in sd})
+    return from_numpy([sd[f"{i}.weight"].numpy() for i in idx],
+                      [sd[f"{i}.bias"].numpy() for i in idx], dtype=dtype, device=device)
 
 
 def predict_downwash(
@@ -101,3 +143,44 @@ def predict_downwash(
     d0 = other_pred_x[..., 0, 0:2] - ego_gate_pos
     inside = (d0 * d0).sum(dim=-1) < r_horiz**2
     return torch.where(inside[..., None, None], forces, forces.new_zeros(()))
+
+
+@torch.no_grad()
+def spectral_normalize(mlp: DownwashMlp, sn: float) -> DownwashMlp:
+    """Scale, in place, every weight matrix whose largest singular value is
+    above `sn` onto the sn-ball (the exact SVD projection of
+    `nn_train.py:150-157`); `sn <= 0` leaves the net as it is. Returns the
+    net."""
+    if sn <= 0:
+        return mlp
+    for layer in mlp.layers:
+        w = layer.weight
+        sigma = torch.linalg.matrix_norm(w, ord=2)
+        w.mul_(torch.where(sigma > sn, sn / sigma, torch.ones_like(sigma)))
+    return mlp
+
+
+def make_trainer(sn: float = 4.0, lr: float = 1e-4):
+    """Full-batch Adam + MSE + the spectral-norm projection after every step
+    (`nn_train.py:84,138-157`: Adam lr=1e-4, MSELoss). Returns (init_opt,
+    train_step, loss_fn), as the JAX package's `make_trainer`:
+    `init_opt(mlp)` is the optimizer, `train_step(mlp, opt, x, y)` one step
+    that returns (mlp, opt, the loss before the step) and updates the net
+    in place, `loss_fn(mlp, x, y)` the MSE. torch's Adam has optax's
+    defaults (b1 0.9, b2 0.999, eps 1e-8 added after the square root)."""
+
+    def init_opt(mlp: DownwashMlp) -> torch.optim.Adam:
+        return torch.optim.Adam(mlp.parameters(), lr=lr)
+
+    def loss_fn(mlp: DownwashMlp, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return torch.mean((mlp(x) - y) ** 2)
+
+    def train_step(mlp: DownwashMlp, opt: torch.optim.Adam, x: torch.Tensor, y: torch.Tensor):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(mlp, x, y)
+        loss.backward()
+        opt.step()
+        spectral_normalize(mlp, sn)
+        return mlp, opt, loss.detach()
+
+    return init_opt, train_step, loss_fn

@@ -36,10 +36,18 @@ def _imports(path):
             yield node.module
 
 
+# the port's tools that import no JAX (`validate_port_mission.py` holds the
+# port against the JAX package and imports it on purpose)
+PORT_TOOLS = ("profile_torch_step.py", "time_sweep_kernels.py", "time_team_kernels.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "ndp_nmpc_qd_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
-    assert len(files) > 10
+    tools = sorted((ROOT / "tools").glob("*_torch.py"))
+    assert len(tools) >= 9, tools
+    files += tools + [ROOT / "tools" / name for name in PORT_TOOLS]
+    assert len(files) > 20
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -55,23 +63,45 @@ def test_default_device_without_a_card_raises(monkeypatch):
         )
 
 
-@pytest.mark.parametrize("entry", ["thrust_controller", "thrust_episode", "tensor_lin"])
-def test_new_entry_points_without_a_card_raise(monkeypatch, entry):
-    """The motor-thrust controller and its episode, and the tensor-op
-    linearizer's controller run on the card by default: without one, and
-    without an explicit device, they raise."""
+TOOL_ARGV = {
+    "train_downwash_torch": ["--epochs", "1", "--n-train", "8"],
+    "qp_envelope_torch": ["--max-d", "2"],
+    "validate_backends_torch": ["--ticks", "1"],
+    "bench_points_torch": ["8"],
+    "bench_ipm_whole_torch": ["8", "1"],
+    "plot_traj_torch": ["--track-secs", "0.02"],
+    "viz3d_torch": ["--track-secs", "0.02"],
+    "nn_field_viz_torch": ["--dzs", "0.8"],
+    "live_plot_torch": ["--secs", "0.01"],
+}
+
+
+@pytest.mark.parametrize("entry", ["thrust_controller", "thrust_episode", "tensor_lin",
+                                   "init_mlp", "load_torch_checkpoint", *TOOL_ARGV])
+def test_new_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
+    """The motor-thrust controller and its episode, the tensor-op
+    linearizer's controller, the MLP trainer's entry points and the port's
+    tools run on the card by default: without one, and without an explicit
+    device or `--cpu`, they raise."""
     from ndp_nmpc_qd_tpu_torch import cli
+    from ndp_nmpc_qd_tpu_torch.models import downwash_mlp
     from ndp_nmpc_qd_tpu_torch.sim.thrust_loop import make_thrust_episode
     from ndp_nmpc_qd_tpu_torch.solver.ocp_thrust import make_thrust_rti_controller
+    from test_torch_tools import load_tool
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = NdpNmpcConfig()
+    ckpt = tmp_path / "sd.pt"
+    torch.save(downwash_mlp.init_mlp(torch.Generator(), (6, 3), device="cpu").layers[0]
+               .state_dict(prefix="0."), ckpt)
     build = {
         "thrust_controller": lambda: make_thrust_rti_controller(cfg.ocp, cfg.vehicle),
         "thrust_episode": lambda: make_thrust_episode(cfg, cli.build_eight()),
         "tensor_lin": lambda: rti.make_batched_rti_controller(cfg.ocp, cfg.vehicle,
                                                                fused_lin=False),
-    }[entry]
+        "init_mlp": lambda: downwash_mlp.init_mlp(torch.Generator()),
+        "load_torch_checkpoint": lambda: downwash_mlp.load_torch_checkpoint(str(ckpt)),
+    }.get(entry) or (lambda: load_tool(entry).main(TOOL_ARGV[entry]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
 
