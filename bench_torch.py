@@ -10,22 +10,27 @@ daemon's tick, on the card:
 
 1. `throughput`: the step at B=65536, mean over 30 queued ticks (CUDA
    events, and wall time), the blocking tick's p50/p90 over 10, ok/B.
-2. `throughput_multitick`: K=64 ticks captured once in a CUDA graph and
+2. `sharded`: the same step through the parallel package's sharded step
+   (`parallel/batch_step.measure_sharded_row`, `bench.py:273-296`'s row)
+   over a one-rank NCCL group: n_devices, B_global, solves/s (30 chained
+   ticks, host clock between synchronisations), per device, the scaling
+   efficiency against row 1's solves/s, ok. `BENCH_SHARDED=0` skips it.
+3. `throughput_multitick`: K=64 ticks captured once in a CUDA graph and
    replayed 4 times (the analog of `bench.py`'s `lax.scan` row); each tick's
    inputs drift with its index, read from static tensors, so the forecast
    and the linearization stay live; the replay held against the same ticks
    run eagerly from a copy of the state.
-3. Interactive rows, the `ControllerDaemon` tick: the scan controller
+4. Interactive rows, the `ControllerDaemon` tick: the scan controller
    cold@12 (`interactive_B1`, `_B64`) and the deployed kernel
    (`interactive_B1_packed`, `_B64_packed`) at B=1 and 64, each 10 warm
    ticks, then 200 blocking ticks and 200 dispatch-ahead ticks (`_pipelined`:
    a tick queues its solve and waits for the previous tick's command, by the
    daemon's own `HostLink`), p50/p99 against the 20 ms deadline, the cyclic
    GC off.
-4. `cpu_daemon_tick`: the scan controller at B=1 on the CPU in float64 (the
+5. `cpu_daemon_tick`: the scan controller at B=1 on the CPU in float64 (the
    program of `serve --cpu`), 50 warm ticks, then 1000.
-5. The headline: the better of rows 1 and 2.
-6. `roofline`: the deployed step's memory traffic and operations a solve,
+6. The headline: the better of rows 1 and 3.
+7. `roofline`: the deployed step's memory traffic and operations a solve,
    counted from its layouts (`utils/roofline.py`, `bench.py:304-332`'s
    line), at row 1's solves/s against the H100's peaks (HBM 3.35 TB/s, f32
    67 TFLOP/s): a lower bound on the share the step reaches.
@@ -55,6 +60,8 @@ import torch
 from ndp_nmpc_qd_tpu_torch.models.downwash_mlp import load_npz, predict_downwash
 from ndp_nmpc_qd_tpu_torch.models.quadrotor import hover_input, hover_state
 from ndp_nmpc_qd_tpu_torch.ops.kernels import step_whole
+from ndp_nmpc_qd_tpu_torch.parallel import distributed
+from ndp_nmpc_qd_tpu_torch.parallel.batch_step import measure_sharded_row
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
 from ndp_nmpc_qd_tpu_torch.runtime.nodes import HostLink
 from ndp_nmpc_qd_tpu_torch.solver.rti import (
@@ -231,6 +238,16 @@ def row_multitick(step, state, ins, K=64, reps=4):
     return row, state
 
 
+def row_sharded(step, state, ins, single_sps, packed_state, iters=30):
+    """`bench.py:273-296`'s sharded row: the step on this rank's block of the
+    scenarios over the 1-D data mesh of every rank, here one rank joined
+    over NCCL (a coordinator on 127.0.0.1 at a free port). Returns (row,
+    skip reason), one of them None."""
+    with distributed.local_group():
+        return measure_sharded_row(step, (state, *ins), B=ins[0].shape[0], single_sps=single_sps,
+                                   iters=iters, packed_state=packed_state)
+
+
 def clone_state(st):
     return RtiState(st.x_bar.clone(), st.u_bar.clone(),
                     None if st.ipm is None else tuple(t.clone() for t in st.ipm))
@@ -381,6 +398,18 @@ def main(argv=None):
           f"{row['blocking_p50_ms']:.3f} ms p90 {row['blocking_p90_ms']:.3f}; ok "
           f"{row['ok']}/{B}", file=sys.stderr)
     best, source = row["solves_per_s"], "queued_ticks"
+
+    if env_flag("BENCH_SHARDED", "1"):
+        sharded, skip = row_sharded(step, state, ins, row["solves_per_s"], flags["packed_state"])
+        details["sharded"] = sharded if sharded is not None else {"skipped": skip}
+        if sharded is not None:
+            print(f"sharded over {sharded['n_devices']} device(s): "
+                  f"{sharded['solves_per_s']:.0f} solves/s "
+                  f"({sharded['solves_per_s_per_device']:.0f}/device, "
+                  f"eff={sharded['scaling_efficiency_vs_single']:.3f} vs single; ok "
+                  f"{sharded['ok']}/{B})", file=sys.stderr)
+        else:
+            print(f"sharded: skipped ({skip})", file=sys.stderr)
 
     if env_flag("BENCH_MULTITICK", "1"):
         K = int(os.environ.get("BENCH_MULTITICK_K", "64"))

@@ -127,6 +127,24 @@ Phases, one line each; any failure exits non-zero before the last line:
    controller, max control deviation below 1e-3 (`BASELINE.md`).
 14. ipm_whole: `tools/bench_ipm_whole_torch.py` at B=65536, 6 iterations:
    K2 against K4 + K5 on one QP batch, element by element, both timed.
+15. sharded: the parallel package (`ndp_nmpc_qd_tpu_torch/parallel/`) over
+   a one-rank NCCL group (a coordinator on 127.0.0.1 at a free port), so
+   that its collectives run on the card:
+   a. the deployed step (forecast + K1, B=65536) through
+      `make_sharded_step`, 3 chained ticks, against the unsharded step on
+      the same inputs: u0, the state and `ok` bitwise equal, K1 launched
+      once a tick; the blocks gathered back over the group;
+   b. the sharded row (`measure_sharded_row`, 30 ticks, against the
+      one-kernel path's solves/s of phase 4): n_devices 1, ok 65536;
+   c. the grouped formation swarm of phase 9c (21845 three-drone NDP
+      formations, 65535 drones, its deployed flags) with batch-first state
+      (`solver_packed_state=False`: the two-kernel path, K3 + K2 a tick)
+      as a sharded episode on a (data 1, swarm 1) mesh, 100 ticks with 50
+      of hold, against the unsharded episode: metrics and the final plant
+      state bitwise equal, the two-kernel path's launches a tick;
+   d. the sharded swarm step (S=64 scenarios of 4 drones, f32, the MLP's
+      pair forces, K3 + K2) against its unsharded replay: bitwise equal;
+   then the process group is destroyed.
    Then the kernels line (K1 also with its B=1 and B=64 times and its
    launches a daemon tick).
 Every path, mission, daemon run and tool phase sets its kernels' launch
@@ -166,8 +184,13 @@ from ndp_nmpc_qd_tpu_torch.ops.kernels import (
     _build, _cuda, ipm_whole, linearize, riccati, riccati_sparse, step_whole,
 )
 from ndp_nmpc_qd_tpu_torch.ops.layout import pack
+from ndp_nmpc_qd_tpu_torch.parallel import batch_step, distributed
+from ndp_nmpc_qd_tpu_torch.parallel.episode import make_sharded_episode
+from ndp_nmpc_qd_tpu_torch.parallel.mesh import make_mesh, make_sharded_swarm_step, tree_map
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
 from ndp_nmpc_qd_tpu_torch.runtime import bus as qb
+from ndp_nmpc_qd_tpu_torch.sim.closed_loop import make_episode
+from ndp_nmpc_qd_tpu_torch.sim.swarm_scale import grid_placement
 from ndp_nmpc_qd_tpu_torch.runtime.nodes import (
     ControllerDaemon, NodeTopics, PlantDaemon, send_trajectory,
 )
@@ -1669,6 +1692,148 @@ def phase_ipm_whole(dev, B=65536, iters=6, reps=20):
     return res
 
 
+def same(tag, got, want):
+    """Every tensor of two equally shaped trees bitwise equal."""
+    bad = []
+    tree_map(lambda a, b: a is None or torch.equal(a, b) or bad.append(tuple(a.shape)), got, want)
+    check(not bad, f"{tag}: sharded and unsharded differ in the leaves of shapes {bad}")
+
+
+def phase_sharded(dev, mlp, seed, single_sps, B=65536, ticks=3, n_swarms=21845,
+                  episode_ticks=100, S=64):
+    """Phase 15: the parallel package over a one-rank process group (NCCL
+    on the card, gloo in the CPU rehearsal), every path against its
+    unsharded twin on the same inputs, bitwise; each path's launches
+    counted from 0 just before it and read just after."""
+    t_phase = time.perf_counter()
+    with distributed.local_group(device=None if dev.type == "cuda" else dev):
+        # a. the deployed step through make_sharded_step
+        ctl = controller(dev)
+        x0, xr, ur, other = inputs(B, dev, seed)
+
+        def step(state, x0, xr, ur, other):
+            return ctl.update(state, x0, xr, ur, forecast(mlp, other, xr, x0, torch.bfloat16))
+
+        args0 = (ctl.reset(xr, ur), x0, xr, ur, other)
+        mesh = batch_step.data_mesh()
+        sfn, place = batch_step.make_sharded_step(step, mesh, args0, layout=ctl.layout)
+        st_s, *rest = place(args0)
+        for k in KERNELS.values():
+            k.launches = 0
+        for _ in range(ticks):
+            u_s, st_s, info_s = sfn(st_s, *rest)
+        launches = {name: k.launches for name, k in KERNELS.items()}
+        st_u = clone_state(args0[0])
+        for _ in range(ticks):
+            u_u, st_u, info_u = step(st_u, *args0[1:])
+        same(f"sharded step (B={B}, {ticks} ticks)", (u_s, st_s, info_s.ok), (u_u, st_u, info_u.ok))
+        same("sharded step, gathered u0", batch_step.gather(mesh, u_s), u_u)
+        print(f"sharded step (deployed, B={B}, world {distributed.process_count()}, "
+              f"{dist_backend()}): {ticks} chained ticks bitwise equal to the unsharded step "
+              f"(u0, state, ok); ok {int(info_s.ok.sum())}/{B}; launches {launched(launches)}")
+        check_launches("sharded step", launches, {"K1": ticks}, dev)
+        check(bool(info_s.ok.all()), f"sharded step: {int((~info_s.ok).sum())} unhealthy")
+
+        # b. the sharded row
+        row, skip = batch_step.measure_sharded_row(step, args0, B=B, single_sps=single_sps,
+                                                   mesh=mesh, packed_state=True)
+        check(skip is None, f"sharded row skipped: {skip}")
+        print(f"sharded row: {json.dumps(row)}")
+        check(row["n_devices"] == 1 and row["B_global"] == B and row["ok"] == B,
+              f"sharded row: {row}")
+        del args0, st_s, st_u, rest, ctl
+
+        # c. the grouped formation swarm as a sharded episode
+        D = 3 * n_swarms
+        kw = dict(n_groups=n_swarms, anchors=grid_placement(n_swarms), use_ndp=True,
+                  downwash_params=mlp, true_downwash=True, qp_iters=3, solver_warm_start=True,
+                  solver_whole_ipm=True, solver_jac_bf16=True, solver_packed_state=False,
+                  solver_whole_step=True, solver_backend="pallas", recover=True,
+                  hold_ticks=episode_ticks // 2)
+        traj = cli.build_eight(device=dev)
+        runs = {"sharded": make_sharded_episode(CFG, traj, make_mesh(1, 1), n_drones=D,
+                                                scenario_batch=1, **kw),
+                "unsharded": make_episode(CFG, traj, n_drones=D, device=dev, **kw)[::2]}
+        out, ms, counted = {}, {"sharded": [], "unsharded": []}, {}
+        for turn in ("unsharded", "sharded", "sharded", "unsharded"):  # in turns: A, B, B, A
+            init, run = runs[turn]
+            st0 = init(dtype=torch.float32)
+            for k in KERNELS.values():
+                k.launches = 0
+            sync(dev)
+            t0 = time.perf_counter()
+            res = run(st0, episode_ticks)[:2]
+            sync(dev)
+            ms[turn].append((time.perf_counter() - t0) * 1e3 / episode_ticks)
+            counted[turn] = {name: k.launches for name, k in KERNELS.items()}
+            out.setdefault(turn, res)
+            del st0, res
+        (st_s, m_s), (st_u, m_u) = out["sharded"], out["unsharded"]
+        unstack = lambda t: tree_map(lambda a: a[0] if isinstance(a, torch.Tensor) else a, t)
+        same(f"sharded episode ({D} drones)", (unstack(m_s), unstack(st_s).plant),
+             (m_u, st_u.plant))
+        print(f"sharded episode (formation swarm, {D} drones, mesh data 1 x swarm 1, "
+              f"batch-first state, {episode_ticks} ticks, {kw['hold_ticks']} of hold): metrics "
+              f"and plant state bitwise equal to the unsharded episode; ok "
+              f"{int(m_s.ok.sum())}/{D}, recovered {int(m_s.recovered.sum())}; ms a tick (wall, "
+              f"synchronised, in turns unsharded, sharded, sharded, unsharded): sharded "
+              f"{' / '.join(f'{t:.3f}' for t in ms['sharded'])}, unsharded "
+              f"{' / '.join(f'{t:.3f}' for t in ms['unsharded'])}; launches a run "
+              f"{launched(counted['sharded'])}")
+        per_tick = PATHS["two-kernel"][1]
+        for turn, launches in counted.items():
+            check_launches(f"{turn} episode", launches,
+                           {k: v * episode_ticks for k, v in per_tick.items()}, dev)
+        check(bool(m_s.ok.all()), f"sharded episode: {int((~m_s.ok).sum())} drones not ok")
+        del out, st_s, st_u, m_s, m_u
+
+        # d. the sharded swarm step against its unsharded replay
+        ctl = controller(dev, packed_state=False, whole_step=False)
+        g = torch.Generator().manual_seed(seed + 2)
+        Dw = 4
+        x0 = hover_state(torch.rand(S, Dw, 3, generator=g) * 2.0 - 1.0).to(dev)
+        xr_lead = hover_state(torch.zeros(S, 3, device=dev))[:, None].repeat(1, N + 1, 1)
+        ur_lead = hover_input(CFG.vehicle, (S,), device=dev)[:, None].repeat(1, N, 1)
+        offsets = torch.zeros(S, Dw, 3, device=dev)
+        offsets[..., 2] = 0.7 * torch.arange(Dw, device=dev)
+        xr = torch.cat([xr_lead[:, None, :, 0:3] + offsets[:, :, None, :],
+                        xr_lead[:, None, :, 3:].expand(S, Dw, N + 1, 7)], dim=-1)
+        ur = ur_lead[:, None].expand(S, Dw, N, 4)
+        flat = lambda a: a.reshape((S * Dw,) + a.shape[2:])
+        unflat = lambda a: a.reshape((S, Dw) + a.shape[1:])
+        rti0 = tree_map(unflat, ctl.reset(flat(xr), flat(ur)))
+        swarm_step = make_sharded_swarm_step(CFG, ctl, make_mesh(1, 1), downwash_params=mlp)
+        for k in KERNELS.values():
+            k.launches = 0
+        u_s, new_s, n_ok_s = swarm_step(rti0, x0, xr_lead, ur_lead, offsets)
+        launches = {name: k.launches for name, k in KERNELS.items()}
+        rel = x0[:, None, :, 0:6] - x0[:, :, None, 0:6]
+        with torch.no_grad():
+            f_pair = mlp(rel)
+        f_pair = torch.where((rel == 0.0).all(dim=-1, keepdim=True),
+                             torch.zeros((), dtype=f_pair.dtype, device=dev), f_pair)
+        f_dist = f_pair.sum(dim=2)[:, :, None, :].expand(S, Dw, N + 1, 3)
+        u_u, new_u, info_u = ctl.update(tree_map(flat, rti0), flat(x0), flat(xr), flat(ur),
+                                        flat(f_dist))
+        same(f"sharded swarm step (S={S}, D={Dw})", (u_s, new_s, n_ok_s),
+             (unflat(u_u), tree_map(unflat, new_u), info_u.ok.reshape(S, Dw).sum(dim=1)))
+        print(f"sharded swarm step (S={S} scenarios x {Dw} drones, f32, the MLP's pair forces, "
+              f"batch-first K3 + K2): bitwise equal to the unsharded replay; n_ok "
+              f"{int(n_ok_s.sum())}/{S * Dw}; launches {launched(launches)}")
+        check_launches("sharded swarm step", launches, PATHS["two-kernel"][1], dev)
+        check(bool(torch.isfinite(u_s).all()), "sharded swarm step: u0 not finite")
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def dist_backend():
+    return torch.distributed.get_backend() if torch.distributed.is_initialized() else "no group"
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--small", action="store_true",
@@ -1685,7 +1850,7 @@ def main():
     mlp = load_npz(ASSET, device=dev)
     try:
         if args.small:
-            phase_path(8, dev, args.seed, mlp, "one-kernel", 1, 2)
+            one = phase_path(8, dev, args.seed, mlp, "one-kernel", 1, 2)
             two = phase_path(8, dev, args.seed, mlp, "two-kernel", 1, 2)
             phase_agree(two, dev, mlp)
             phase_path(8, dev, args.seed, mlp, "per-iteration", 1, 2)
@@ -1711,6 +1876,8 @@ def main():
             phase_envelope(dev, max_d=10)
             phase_validate(dev, ticks=3, hold_ticks=1)
             phase_ipm_whole(dev, B=8, iters=2)
+            phase_sharded(dev, mlp, args.seed, 8 / one["step_ms"] * 1e3, B=8, n_swarms=2,
+                          episode_ticks=4, S=2)
             print("rehearsal done: no kernel ran, so no result is printed")
             sys.exit(2)
         phase_build()
@@ -1719,6 +1886,7 @@ def main():
         phase_compare_sweep(4096, dev, args.seed)
         phase_compare_packed(4096, dev, args.seed)
         main_ = phase_path(65536, dev, args.seed, mlp)
+        single_sps = 65536 / main_["step_ms"] * 1e3
         two = phase_path(65536, dev, args.seed, mlp, "two-kernel")
         phase_agree(two, dev, mlp)
         per = phase_path(65536, dev, args.seed, mlp, "per-iteration")
@@ -1745,6 +1913,7 @@ def main():
         phase_envelope(dev)
         phase_validate(dev)
         phase_ipm_whole(dev)
+        phase_sharded(dev, mlp, args.seed, single_sps)
         print(json.dumps({"kernels": kernels}))
     except Fail as e:
         print(f"FAILED: {e}", file=sys.stderr)

@@ -21,6 +21,10 @@ The mission clock stays on the host: the tick, the hold/track phase, the
 trajectory time and `finished` are Python numbers, so `step_fn` never waits
 for the card. Health, the re-seed count and the error sums stay on the
 device. `run_fn` is a Python loop over `step_fn`.
+
+Sharded over a mesh's swarm axis (`swarm_axis_name`), each rank steps its
+own block of the drones, and every cross-drone read goes through an
+all_gather along that axis (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..models.downwash_mlp import DownwashMlp, predict_downwash
 from ..models.quadrotor import hover_state
 from ..ops import quat
 from ..ops.layout import pack
+from ..parallel.mesh import all_gather, all_reduce, mesh_of_axis
 from ..params import NdpNmpcConfig
 from ..solver.rti import RtiState, make_batched_rti_controller
 from ..swarm.formation import rate_converted_alpha, reference_formation_offsets
@@ -133,17 +138,37 @@ def make_episode(
     The controller is `make_batched_rti_controller` with `solver_backend`
     as `resolve_backend` resolves it; the scan controller ("jax") ignores
     the kernel-path flags (warm start, bf16, whole IPM, packed state, whole
-    step). A sharded episode (`swarm_axis_name` /
-    `swarm_shards` > 1, ROADMAP Queue 1 item 11) raises. The solver flags
-    are `make_batched_rti_controller`'s. Runs on `device`, by default the
-    card.
+    step). The solver flags are `make_batched_rti_controller`'s. Runs on
+    `device`, by default the card.
+
+    `swarm_axis_name` + `swarm_shards` run this episode with the drone axis
+    split over the axis of that name of the mesh last built
+    (`parallel.mesh.make_mesh`): `step_fn` and `run_fn` then step this
+    rank's block of D / swarm_shards drones, and every cross-drone read
+    (the leaders' states and previously published horizons, the PredXU
+    hop; the NDP companion horizon; the plant-side wake coupling) gathers
+    the drone axis over the axis's process group; the re-seed count is
+    summed over it. A name that no mesh has, or `swarm_shards` > 1 without
+    a name, raises ValueError. `init_fn` always builds the GLOBAL-drone
+    state; each rank takes its block of it
+    (`parallel.episode.make_sharded_episode`).
     """
-    if swarm_axis_name is not None or swarm_shards > 1:
-        raise NotImplementedError(
-            "the sharded episode (swarm_axis_name / swarm_shards > 1) is not ported yet: "
-            "ROADMAP Queue 1 item 11"
-        )
+    mesh = None
+    if swarm_axis_name is not None:
+        mesh = mesh_of_axis(swarm_axis_name)
+        if mesh.shape[swarm_axis_name] != swarm_shards:
+            raise ValueError(f"swarm_shards={swarm_shards}, but the mesh axis "
+                             f"{swarm_axis_name!r} has {mesh.shape[swarm_axis_name]} ranks")
+    elif swarm_shards > 1:
+        raise ValueError(f"swarm_shards={swarm_shards} needs the mesh axis the drones are "
+                         "split over (swarm_axis_name)")
+    assert not (solver_packed_state and swarm_axis_name is not None), (
+        "kernel-layout state folds the drone axis into the batch lanes; the sharded "
+        "episode shards the drone axis: use the batch-first layout there"
+    )
     dev = resolve_device(device)
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"the episode runs on {dev}, its mesh's ranks on {mesh.device}")
     ocp, veh, est_p, dw = cfg.ocp, cfg.vehicle, cfg.estimator, cfg.downwash
     multi_traj = not isinstance(traj, PiecewisePoly)
     if multi_traj:
@@ -172,10 +197,23 @@ def make_episode(
     if formation_fn is None:
         formation_fn = partial(reference_formation_offsets, n_drones=G)
     alpha_tick = rate_converted_alpha(0.8, 0.05, ocp.ts_nmpc)
-    gidx = torch.arange(D, device=dev)
+    assert D % swarm_shards == 0, (D, swarm_shards)
+    Dl = D // swarm_shards  # this rank's drones (D unsharded)
+    d0 = 0 if mesh is None else mesh.coords[swarm_axis_name] * Dl
+    gidx = torch.arange(d0, d0 + Dl, device=dev)  # global indices of the local drones
     member = gidx % G
     grp = gidx // G
     is_leader = member == 0
+
+    def gall(a):
+        """The drone axis gathered over the swarm ranks (the identity
+        unsharded): the collective form of the PredXU topic hop."""
+        return a if mesh is None else all_gather(mesh, swarm_axis_name, a)
+
+    def local_slice(a):
+        """This rank's drone rows of a global (D, ...) tensor."""
+        return a if mesh is None else a[d0:d0 + Dl]
+
     # the mission clock's end, on the host
     t_end = float(traj.t_cum[..., -1].max())
     anch_of = {}  # the anchors per compute dtype, on the device
@@ -223,15 +261,20 @@ def make_episode(
         t = max(float(npf(st.tick - hold_ticks) * npf(ocp.ts_nmpc)), 0.0)
         finished = (not in_hold) and t >= float(npf(t_end))
         anch = anch_for(dtype)
-        x_grp = x.reshape(S, G, 10)
+        x_all = gall(x)  # (D, 10) every drone's current state
+        x_grp = x_all.reshape(S, G, 10)
         lead_x = x_grp[:, 0]
+        if multi_traj:
+            traj_loc = PiecewisePoly(*(local_slice(a) for a in traj))
+        # every drone's previously published horizon (the PredXU exchange)
+        prev_x_all = None if independent else gall(st.prev_ref_x)
 
         if not multi_traj:
             # 1. leader references: the hold point while calibrating, else the
             # trajectory anchored at each group's placement
             if in_hold:
-                xr_L = st.hold_xr.reshape(S, G, N + 1, 10)[:, 0]
-                ur_L = st.hold_ur.reshape(S, G, N, 4)[:, 0]
+                xr_L = gall(st.hold_xr).reshape(S, G, N + 1, 10)[:, 0]
+                ur_L = gall(st.hold_ur).reshape(S, G, N, 4)[:, 0]
             else:
                 xr_T, ur_T = nmpc_refs(traj, t, ocp, veh)
                 xr_T = xr_T.to(dtype)
@@ -245,22 +288,22 @@ def make_episode(
             if in_hold:
                 xr, ur = st.hold_xr, st.hold_ur
             else:
-                xr_D, ur_D = nmpc_refs(traj, t, ocp, veh)
+                xr_D, ur_D = nmpc_refs(traj_loc, t, ocp, veh)
                 xr, ur = xr_D.to(dtype), ur_D.to(dtype)
         elif independent:
             # four_qd: every drone on its own offset copy of the trajectory
             lpf = st.lpf_offset
             xr = torch.cat([xr_L[0][None, :, 0:3] + lpf[:, None, :],
-                            xr_L[0][None, :, 3:].expand(D, N + 1, 7)], dim=-1)
-            ur = ur_L[0][None].expand(D, N, 4)
+                            xr_L[0][None, :, 3:].expand(Dl, N + 1, 7)], dim=-1)
+            ur = ur_L[0][None].expand(Dl, N, 4)
         else:
             # 2. follower references from each group leader's previous
             # horizon plus the filtered offset (own-frame offset rule)
             own = torch.cat([lead_x[:, 0:3] - anch, lead_x[:, 3:]], dim=-1)
-            raw_off = formation_fn(own).reshape(D, 3).to(dtype)
+            raw_off = local_slice(formation_fn(own).reshape(D, 3).to(dtype))
             lpf = alpha_tick * st.lpf_offset + (1 - alpha_tick) * raw_off
-            prev_x = st.prev_ref_x.reshape(S, G, N + 1, 10)[:, 0][grp]
-            prev_u = st.prev_ref_u.reshape(S, G, N, 4)[:, 0][grp]
+            prev_x = prev_x_all.reshape(S, G, N + 1, 10)[:, 0][grp]
+            prev_u = gall(st.prev_ref_u).reshape(S, G, N, 4)[:, 0][grp]
             xr_F = torch.cat([prev_x[..., 0:3] + lpf[:, None, :], prev_x[..., 3:]], dim=-1)
             lead = is_leader[:, None, None]
             xr = torch.where(lead, xr_L[grp], xr_F)
@@ -268,9 +311,9 @@ def make_episode(
 
         # 3. the NDP forecast of each group leader from its member 1's
         # previous horizon
-        f_dist = torch.zeros((D, N + 1, 3), dtype=dtype, device=dev)
+        f_dist = torch.zeros((Dl, N + 1, 3), dtype=dtype, device=dev)
         if use_ndp and G > 1 and not independent:
-            prev_m1 = st.prev_ref_x.reshape(S, G, N + 1, 10)[:, 1]
+            prev_m1 = prev_x_all.reshape(S, G, N + 1, 10)[:, 1]
             with torch.no_grad():
                 f_leader = predict_downwash(
                     downwash_params, prev_m1, xr_L, r_horiz=dw.r_horiz,
@@ -297,6 +340,8 @@ def make_episode(
             hold_u[3] = veh.gravity
             u0 = torch.where(ok_tick[:, None], u0, hold_u)
             n_reseeded = torch.sum(~ok_tick)
+            if mesh is not None:  # the count stays replicated over the swarm ranks
+                n_reseeded = all_reduce(mesh, swarm_axis_name, n_reseeded)
 
         # 5. throttle conversion and the estimator tick (frozen while
         # tracking, as the reference shuts its timer down)
@@ -308,11 +353,11 @@ def make_episode(
         # 6. the plant step with ground-truth coupling (within each group)
         if true_downwash and D > 1:
             if S > 1:
-                f_ext = pairwise_downwash(x_grp).reshape(D, 3).to(dtype)
+                f_ext = local_slice(pairwise_downwash(x_grp).reshape(D, 3).to(dtype))
             else:
-                f_ext = downwash_on_locals(x, x, gidx)
+                f_ext = downwash_on_locals(x, x_all, gidx)
         else:
-            f_ext = torch.zeros((D, 3), dtype=dtype, device=dev)
+            f_ext = torch.zeros((Dl, 3), dtype=dtype, device=dev)
         plant = plant_step(st.plant, u0[:, 0:3], throttle, f_ext, ocp.ts_nmpc, veh, cfg.sim)
 
         # 7. metrics while tracking: leader vs trajectory, followers vs
@@ -320,7 +365,7 @@ def make_episode(
         track = not in_hold
         pos_err2, yaw_err2, form_err2 = st.pos_err2, st.yaw_err2, st.form_err2
         if track:
-            fo_t = eval_traj(traj, t)
+            fo_t = eval_traj(traj_loc if multi_traj else traj, t)
             if multi_traj:
                 pos_tgt, yaw_tgt = fo_t.pos.to(dtype), fo_t.yaw.to(dtype)
             else:

@@ -43,6 +43,8 @@ PORT_TOOLS = ("profile_torch_step.py", "time_sweep_kernels.py", "time_team_kerne
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "ndp_nmpc_qd_tpu_torch").rglob("*.py"))
+    parallel = {"distributed.py", "mesh.py", "episode.py", "batch_step.py"}
+    assert parallel <= {f.name for f in files if f.parent.name == "parallel"}, files
     files += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
     tools = sorted((ROOT / "tools").glob("*_torch.py"))
     assert len(tools) >= 9, tools
@@ -77,14 +79,20 @@ TOOL_ARGV = {
 
 
 @pytest.mark.parametrize("entry", ["thrust_controller", "thrust_episode", "tensor_lin",
-                                   "init_mlp", "load_torch_checkpoint", *TOOL_ARGV])
+                                   "init_mlp", "load_torch_checkpoint", "initialize",
+                                   "make_sharded_step", "make_sharded_episode", *TOOL_ARGV])
 def test_new_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
     """The motor-thrust controller and its episode, the tensor-op
-    linearizer's controller, the MLP trainer's entry points and the port's
-    tools run on the card by default: without one, and without an explicit
-    device or `--cpu`, they raise."""
+    linearizer's controller, the MLP trainer's entry points, the parallel
+    package's (joining a process group, the sharded batch step and the
+    sharded episode, each on a new default mesh, none being kept) and the
+    port's tools run on the card by default: without one, and without an
+    explicit device or `--cpu`, they raise (`initialize` before it joins
+    any group)."""
     from ndp_nmpc_qd_tpu_torch import cli
     from ndp_nmpc_qd_tpu_torch.models import downwash_mlp
+    from ndp_nmpc_qd_tpu_torch.parallel import batch_step, distributed, episode
+    from ndp_nmpc_qd_tpu_torch.parallel.mesh import release_meshes
     from ndp_nmpc_qd_tpu_torch.sim.thrust_loop import make_thrust_episode
     from ndp_nmpc_qd_tpu_torch.solver.ocp_thrust import make_thrust_rti_controller
     from test_torch_tools import load_tool
@@ -101,16 +109,25 @@ def test_new_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
                                                                fused_lin=False),
         "init_mlp": lambda: downwash_mlp.init_mlp(torch.Generator()),
         "load_torch_checkpoint": lambda: downwash_mlp.load_torch_checkpoint(str(ckpt)),
+        "initialize": lambda: distributed.initialize(coordinator="127.0.0.1:1", num_processes=2,
+                                                     process_id=0),
+        "make_sharded_step": lambda: batch_step.make_sharded_step(
+            lambda *a: a, None, (torch.zeros(2, 3),)),
+        "make_sharded_episode": lambda: episode.make_sharded_episode(
+            cfg, cli.build_eight(), None, n_drones=2, scenario_batch=1),
     }.get(entry) or (lambda: load_tool(entry).main(TOOL_ARGV[entry]))
+    release_meshes()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
 
 
 def test_no_raise_cites_item_10():
-    """Queue 1 item 10 (the tensor-op linearizer, the motor-thrust NMPC) is
-    ported: no message of the package cites it."""
+    """Queue 1 items 10 (the tensor-op linearizer, the motor-thrust NMPC)
+    and 11 (the parallel package) are ported: no message of the package
+    cites them."""
     for path in sorted((ROOT / "ndp_nmpc_qd_tpu_torch").rglob("*.py")):
-        assert "item 10" not in path.read_text(), path
+        text = path.read_text()
+        assert "item 10" not in text and "item 11" not in text, path
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -224,18 +241,21 @@ def test_sweep_wrappers_take_the_plain_versions_on_cpu_tensors():
         riccati_sparse.riccati_sweep_backward(*(t.to("meta") for t in args[:13]), **kw)
 
 
-@pytest.mark.parametrize("bad", [dict(swarm_axis_name="x"), dict(swarm_shards=2)])
-def test_unported_ipm_options_raise(bad):
-    """The episode's options that are not ported yet raise, naming their
-    ROADMAP item: the sharded episode, by its mesh axis name or its shard
-    count (Queue 1 item 11). The per-iteration IPM's clipped-LQR start and
-    unfused glue and the scan controller (`solver_backend="jax"`), which
-    raised here before they were ported, run now
-    (`test_torch_riccati_sweep.py`, `test_torch_scan_controller.py`)."""
+@pytest.mark.parametrize("bad, match", [(dict(swarm_axis_name="x"), "'x'"),
+                                        (dict(swarm_shards=2), "swarm_axis_name")])
+def test_unported_ipm_options_raise(bad, match):
+    """The sharded episode, which raised here until it was ported (Queue 1
+    item 11, `test_torch_parallel_gloo.py` runs it over two ranks), never
+    runs unsharded in silence: without a mesh, a mesh axis name raises
+    ValueError naming the axis, and a shard count without an axis name
+    raises too. The per-iteration IPM's clipped-LQR start and unfused glue
+    and the scan controller (`solver_backend="jax"`), which raised here
+    before they were ported, run now (`test_torch_riccati_sweep.py`,
+    `test_torch_scan_controller.py`)."""
     from ndp_nmpc_qd_tpu_torch.cli import build_eight
     from ndp_nmpc_qd_tpu_torch.sim.closed_loop import make_episode
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    with pytest.raises(ValueError, match=match):
         make_episode(NdpNmpcConfig(), build_eight(), n_drones=2, device="cpu", **bad)
 
 
