@@ -1,6 +1,6 @@
 """Benchmark of the PyTorch port: batched NDP-NMPC solves/s on one CUDA card.
 
-    python3 bench_torch.py [--details PATH] [--seed N]
+    python3 bench_torch.py [--details PATH] [--seed N] [--sharded-devices N]
 
 The port's counterpart of `bench.py` (which runs the JAX package on a TPU).
 It measures the deployed fused control step — bf16 downwash-MLP forecast +
@@ -12,8 +12,10 @@ daemon's tick, on the card:
    events, and wall time), the blocking tick's p50/p90 over 10, ok/B.
 2. `sharded`: the same step through the parallel package's sharded step
    (`parallel/batch_step.measure_sharded_row`, `bench.py:273-296`'s row)
-   over a one-rank NCCL group: n_devices, B_global, solves/s (30 chained
-   ticks, host clock between synchronisations), per device, the scaling
+   on every local card (`--sharded-devices N` for N of them), one process
+   a card over NCCL (`parallel/launch.spawn`), each rank its block of the
+   B scenarios: n_devices, B_global, solves/s (30 chained ticks, host clock
+   between synchronisations, the slowest rank's), per device, the scaling
    efficiency against row 1's solves/s, ok. `BENCH_SHARDED=0` skips it.
 3. `throughput_multitick`: K=64 ticks captured once in a CUDA graph and
    replayed 4 times (the analog of `bench.py`'s `lax.scan` row); each tick's
@@ -50,19 +52,18 @@ import argparse
 import gc
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from ndp_nmpc_qd_tpu_torch.models.downwash_mlp import load_npz, predict_downwash
-from ndp_nmpc_qd_tpu_torch.models.quadrotor import hover_input, hover_state
+from ndp_nmpc_qd_tpu_torch.deployed import (
+    ASSET, CFG, FLAGS, N, card_line, control_step, inputs, sharded_row_rank,
+)
+from ndp_nmpc_qd_tpu_torch.models.downwash_mlp import load_npz
 from ndp_nmpc_qd_tpu_torch.ops.kernels import step_whole
-from ndp_nmpc_qd_tpu_torch.parallel import distributed
-from ndp_nmpc_qd_tpu_torch.parallel.batch_step import measure_sharded_row
-from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
+from ndp_nmpc_qd_tpu_torch.parallel.launch import spawn
 from ndp_nmpc_qd_tpu_torch.runtime.nodes import HostLink
 from ndp_nmpc_qd_tpu_torch.solver.rti import (
     RtiState, make_batched_rti_controller, make_rti_controller,
@@ -70,9 +71,6 @@ from ndp_nmpc_qd_tpu_torch.solver.rti import (
 from ndp_nmpc_qd_tpu_torch.utils.roofline import roofline_report, step_cost
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ASSET = os.path.join(ROOT, "assets", "downwash_analytic_sn4.npz")
-CFG = NdpNmpcConfig()
-N = CFG.ocp.N_node
 DEADLINE_MS = 20.0  # the reference's control period (`nmpc_node.py:216-220`)
 
 
@@ -81,44 +79,17 @@ def env_flag(name, default):
 
 
 def deployed_flags():
-    """The deployed controller's flags, `bench.py:96-118`'s, each overridden
-    by its `BENCH_*` variable."""
+    """The deployed controller's flags (`deployed.FLAGS`, `bench.py:96-118`'s),
+    each overridden by its `BENCH_*` variable."""
     whole_ipm = env_flag("BENCH_WHOLE_IPM", "1")
     packed_state = env_flag("BENCH_PACKED_STATE", "1")
     return dict(
-        with_disturbance=True, qp_iters=int(os.environ.get("BENCH_QP_ITERS", "3")),
-        warm_start=True, jac_bf16=env_flag("BENCH_JAC_BF16", "1"),
+        FLAGS, qp_iters=int(os.environ.get("BENCH_QP_ITERS", str(FLAGS["qp_iters"]))),
+        jac_bf16=env_flag("BENCH_JAC_BF16", "1"),
         lqr_start=env_flag("BENCH_LQR_START", "0" if whole_ipm else "1"),
         whole_ipm=whole_ipm, packed_state=packed_state,
         whole_step=env_flag("BENCH_WHOLE_STEP", "1") and packed_state,
     )
-
-
-def inputs(B, dev, seed):
-    """`bench.py:122-131`'s operating point from a seeded generator: hover at
-    uniform offsets in [-1, 1] m, hover references at the origin, the other
-    drone's horizon 0.9 m above (the forecast active)."""
-    g = torch.Generator().manual_seed(seed)
-    pos = torch.rand(B, 3, generator=g) * 2.0 - 1.0
-    x0 = hover_state(pos).to(dev)
-    xr = hover_state(torch.zeros(B, 3)).to(dev)[:, None, :].repeat(1, N + 1, 1)
-    ur = hover_input(CFG.vehicle, (B,), device=dev)[:, None, :].repeat(1, N, 1)
-    other = xr.clone()
-    other[..., 2] += 0.9
-    return x0, xr, ur, other
-
-
-def control_step(ctl, mlp, mlp_bf16):
-    """The deployed tick: the forecast, then one update."""
-
-    def step(state, x0, xr, ur, other):
-        with torch.no_grad():
-            f = predict_downwash(mlp, other, xr, r_horiz=CFG.downwash.r_horiz,
-                                 ego_gate_pos=x0[..., 0:3],
-                                 compute_dtype=torch.bfloat16 if mlp_bf16 else None)
-        return ctl.update(state, x0, xr, ur, f)
-
-    return step
 
 
 def sync(dev):
@@ -238,14 +209,15 @@ def row_multitick(step, state, ins, K=64, reps=4):
     return row, state
 
 
-def row_sharded(step, state, ins, single_sps, packed_state, iters=30):
-    """`bench.py:273-296`'s sharded row: the step on this rank's block of the
-    scenarios over the 1-D data mesh of every rank, here one rank joined
-    over NCCL (a coordinator on 127.0.0.1 at a free port). Returns (row,
-    skip reason), one of them None."""
-    with distributed.local_group():
-        return measure_sharded_row(step, (state, *ins), B=ins[0].shape[0], single_sps=single_sps,
-                                   iters=iters, packed_state=packed_state)
+def row_sharded(B, seed, single_sps, flags, mlp_bf16, n_devices=None, iters=30):
+    """`bench.py:273-296`'s sharded row on `n_devices` cards (default every
+    local card, as JAX's "all local devices"), one process a card joined
+    over NCCL by `launch.spawn`, each rank `deployed.sharded_row_rank`.
+    Returns (row, skip reason), one of them None (every rank holds the same
+    row)."""
+    row, skip, _ = spawn(sharded_row_rank, n_devices,
+                         args=(B, seed, single_sps, flags, mlp_bf16, iters))[0]
+    return row, skip
 
 
 def clone_state(st):
@@ -358,18 +330,12 @@ def roofline_row(flags, solves_per_s):
     return roof
 
 
-def card_line():
-    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--details", default=os.path.join(ROOT, "build", "bench_torch_details.json"))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sharded-devices", type=int, default=None,
+                    help="cards of the sharded row, a process each (default: every local card)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: bench_torch.py measures the card")
@@ -400,7 +366,8 @@ def main(argv=None):
     best, source = row["solves_per_s"], "queued_ticks"
 
     if env_flag("BENCH_SHARDED", "1"):
-        sharded, skip = row_sharded(step, state, ins, row["solves_per_s"], flags["packed_state"])
+        sharded, skip = row_sharded(B, args.seed, row["solves_per_s"], flags, mlp_bf16,
+                                    args.sharded_devices)
         details["sharded"] = sharded if sharded is not None else {"skipped": skip}
         if sharded is not None:
             print(f"sharded over {sharded['n_devices']} device(s): "

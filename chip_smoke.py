@@ -144,7 +144,25 @@ Phases, one line each; any failure exits non-zero before the last line:
       state bitwise equal, the two-kernel path's launches a tick;
    d. the sharded swarm step (S=64 scenarios of 4 drones, f32, the MLP's
       pair forces, K3 + K2) against its unsharded replay: bitwise equal;
-   then the process group is destroyed.
+   then the process group is destroyed. Then, one process a card of this
+   host (`parallel/launch.spawn`, NCCL; 1 on a one-card machine):
+   e. `entry.dryrun_multichip` on every rank (the sharded NDP episode and
+      the grouped formation on the scan controller, every drone `ok`; one
+      data-parallel MLP training step, its averaged gradients, loss and
+      weights held against the one-process step on the whole batch:
+      bitwise at world 1, else weights atol 1e-6, gradients 1e-5 of their
+      largest, loss rtol 1e-5; the weights and gradients equal on every
+      rank);
+   f. `bench_torch.py`'s sharded row (`deployed.sharded_row_rank`) on
+      every card: n_devices the card count, ok 65536, K1 31 launches a
+      rank.
+16. profilers: `tools/profile_trace_torch.py`'s attribution of the
+   deployed step at B=65536 by bucket (the buckets sum to the device total
+   within 0.1%, the K1 bucket within 15% of K1's ms on the kernels line,
+   K1 launched 6 times); `tools/profile_step_torch.py` at B=4096 (t(12) >
+   t(6) > t(0) on the qp_iters sweep, the marginal, the kernels alone, the
+   glue); the device-only interactive tick at B=1 and 64 of the scan
+   controller and of K1 (K1 under 20 ms).
    Then the kernels line (K1 also with its B=1 and B=64 times and its
    launches a daemon tick).
 Every path, mission, daemon run and tool phase sets its kernels' launch
@@ -184,7 +202,11 @@ from ndp_nmpc_qd_tpu_torch.ops.kernels import (
     _build, _cuda, ipm_whole, linearize, riccati, riccati_sparse, step_whole,
 )
 from ndp_nmpc_qd_tpu_torch.ops.layout import pack
+from ndp_nmpc_qd_tpu_torch.entry import (
+    ROWS_PER_RANK, TRAIN_LR, multichip_rank, train_step_diff,
+)
 from ndp_nmpc_qd_tpu_torch.parallel import batch_step, distributed
+from ndp_nmpc_qd_tpu_torch.parallel.launch import spawn
 from ndp_nmpc_qd_tpu_torch.parallel.episode import make_sharded_episode
 from ndp_nmpc_qd_tpu_torch.parallel.mesh import make_mesh, make_sharded_swarm_step, tree_map
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig
@@ -1825,6 +1847,96 @@ def phase_sharded(dev, mlp, seed, single_sps, B=65536, ticks=3, n_swarms=21845,
     print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_spawned(dev, seed, single_sps, B=65536):
+    """Phase 15, across processes: `dryrun_multichip` and the sharded row on
+    every card of this host, one process a card (`launch.spawn` of
+    `entry.multichip_rank`; one gloo rank in the CPU rehearsal). Holds the
+    data-parallel training step (its averaged gradients, its loss, the
+    weights after it) against the one-process step on the whole batch
+    (`entry.train_step_diff`: bitwise at world 1), `ok` B on the row, and
+    `ok` for every drone of the dry run's episodes."""
+    world = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn(multichip_rank, world, device=None if dev.type == "cuda" else "cpu",
+                args=(B, seed, single_sps), timeout_s=600)
+    t_spawn = time.perf_counter() - t0
+    for r in res:
+        dry = r["dry"]
+        n_ok = sum(int(np.sum(dry[part]["ok"])) for part in ("episode", "formation"))
+        n_all = sum(np.size(dry[part]["ok"]) for part in ("episode", "formation"))
+        print(f"dryrun_multichip rank {r['rank']} on {r['device']} (mesh {dry['mesh']}): episode "
+              f"and formation ok {n_ok}/{n_all} drones, loss {dry['loss']!r}; {r['t_dry']:.1f} s")
+        check(n_ok == n_all, f"dryrun rank {r['rank']}: {n_all - n_ok} drones not ok")
+    d = train_step_diff([r["dry"] for r in res], dev)
+    print(f"data-parallel training step at world {world} against the one-process step on the "
+          f"whole batch ({world * ROWS_PER_RANK} rows, lr {TRAIN_LR}): {json.dumps(d)}")
+    check(d["replicated"], "data-parallel step: the ranks' weights or gradients differ")
+    if world == 1:
+        check(d["bitwise"], "data-parallel step at world 1 is not bitwise the one-process step")
+    else:
+        check(d["weights_max_abs_diff"] <= 1e-6 and d["grads_max_rel_diff"] <= 1e-5
+              and d["loss_rel_diff"] <= 1e-5, "data-parallel step out of tolerance")
+    rows = [r["row"] for r in res]
+    row = rows[0]
+    check(res[0]["skip"] is None, f"sharded row skipped: {res[0]['skip']}")
+    print(f"sharded row over {world} process(es) (one a card): {json.dumps(row)}; K1 launches a "
+          f"rank {[r['k1'] for r in res]}; the launch {t_spawn:.1f} s")
+    check(all(r == row for r in rows), f"the ranks' rows differ: {rows}")
+    check(row["n_devices"] == world and row["B_global"] == B and row["ok"] == B,
+          f"sharded row: {row}")
+    if dev.type == "cuda":
+        check(all(r["k1"] == 31 for r in res), "sharded row: K1 not launched 31 times a rank")
+    return row
+
+
+def phase_profilers(dev, k1_ms, B=65536, sweep_B=4096):
+    """Phase 16: the two profilers. The deployed step's attribution at B
+    (`tools/profile_trace_torch.py`): the buckets sum to the device total
+    within 0.1%, the K1 bucket within 15% of K1's ms on the kernels line;
+    the qp_iters sweep at `sweep_B` (`tools/profile_step_torch.py`):
+    t(12) > t(6) > t(0); K1's device-only tick at B=1 and 64 under 20 ms
+    (and the scan controller's beside it)."""
+    t_phase = time.perf_counter()
+    trace, prof_step = tool("profile_trace_torch"), tool("profile_step_torch")
+    att, launches = count_launches(trace.step_attribution, B, dev=dev)
+    total, per = att["device_total_us_per_step"], att["per_component_us"]
+    trace.report(att, file=sys.stdout)
+    s = sum(per.values())
+    print(f"attribution at B={B}: buckets sum {s:.1f} us against the device total {total:.1f} "
+          f"us ({100 * abs(s - total) / total:.4f}%); K1 bucket {per['step_whole_kernel']:.1f} "
+          f"us against K1's {k1_ms * 1e3:.1f} on the kernels line; launches {launched(launches)}")
+    check(abs(s - total) <= 1e-3 * total, "attribution: the buckets do not sum to the total")
+    check(abs(per["step_whole_kernel"] - k1_ms * 1e3) <= 0.15 * k1_ms * 1e3,
+          "attribution: the K1 bucket is not within 15% of K1's time")
+    check_launches("attribution", launches, {"K1": 1 + trace.N_STEPS}, dev)
+    res, launches = count_launches(prof_step.run, sweep_B)
+    t, k = res["qp_iters_ms"], res["kernels_us"]
+    print(f"profile_step at B={sweep_B}: qp_iters 0 / 6 / 12 {t['0']:.3f} / {t['6']:.3f} / "
+          f"{t['12']:.3f} ms a tick; variants {json.dumps(res['variants_ms'])}; marginal "
+          f"{res['per_iter_marginal_us']:.1f} us an iteration (base "
+          f"{res['base_extrapolated_ms']:.3f} ms); alone K6 + K7 {k['K6+K7']:.1f}, K3 "
+          f"{k['K3']:.1f}, K4 + K5 {k['K4+K5']:.1f} us; glue {res['glue_us']:.1f} us an iteration "
+          f"({100 * res['glue_share']:.1f}%); launches {launched(launches)}")
+    check(t["12"] > t["6"] > t["0"], f"qp_iters sweep not increasing: {t}")
+    if dev.type == "cuda":
+        check(all(launches[k] > 0 for k in ("K3", "K4", "K5", "K6", "K7"))
+              and launches["K1"] == launches["K2"] == 0,
+              f"profile_step launched {launches}: want K3-K7, no K1 or K2")
+    inter, launches = count_launches(trace.interactive, dev=dev)
+    for key, v in inter.items():
+        print(f"interactive device-only {key}: {v['device_us_per_tick'] / 1e3:.3f} ms a tick "
+              f"({v['backend']}, {v['config']}; {v['kernels_per_tick']:.0f} kernels a tick, "
+              f"wall {v['wall_ms_per_tick']:.3f} ms with the profiler on)")
+    print(f"interactive launches {launched(launches)}")
+    for key in ("B1_pallas_whole_step", "B64_pallas_whole_step"):
+        check(inter[key]["device_us_per_tick"] < 20e3, f"{key}: device tick over 20 ms")
+    check_launches("interactive", launches, {"K1": 2 * (1 + trace.N_STEPS)}, dev)
+    print(f"profilers phase: {time.perf_counter() - t_phase:.1f} s")
+    return att, res, inter
+
+
 def dist_backend():
     return torch.distributed.get_backend() if torch.distributed.is_initialized() else "no group"
 
@@ -1878,6 +1990,7 @@ def main():
             phase_ipm_whole(dev, B=8, iters=2)
             phase_sharded(dev, mlp, args.seed, 8 / one["step_ms"] * 1e3, B=8, n_swarms=2,
                           episode_ticks=4, S=2)
+            phase_spawned(dev, args.seed, 8 / one["step_ms"] * 1e3, B=8)
             print("rehearsal done: no kernel ran, so no result is printed")
             sys.exit(2)
         phase_build()
@@ -1914,6 +2027,8 @@ def main():
         phase_validate(dev)
         phase_ipm_whole(dev)
         phase_sharded(dev, mlp, args.seed, single_sps)
+        phase_spawned(dev, args.seed, single_sps)
+        phase_profilers(dev, kernels[0]["ms"])
         print(json.dumps({"kernels": kernels}))
     except Fail as e:
         print(f"FAILED: {e}", file=sys.stderr)

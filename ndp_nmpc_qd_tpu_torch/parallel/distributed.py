@@ -9,7 +9,8 @@ block of the scenarios and drones (the SPMD idiom); the meshes
 axes.
 
 Typical launch, one process per card (torch.distributed learns nothing of a
-cluster by itself: the coordinator, the world size and the rank are given):
+cluster by itself: the coordinator, the world size and the rank are given;
+on one host `parallel/launch.py` starts the processes and gives them):
 
     from ndp_nmpc_qd_tpu_torch.parallel.distributed import initialize, make_global_mesh
     initialize(coordinator="10.0.0.1:8476", num_processes=8, process_id=RANK)
@@ -78,13 +79,20 @@ def initialize(
 
     A no-op for one process with no coordinator, as in JAX. Otherwise
     `dist.init_process_group` with `init_method="tcp://{coordinator}"`
-    ("host:port", rank 0 listening there), `num_processes` ranks (default
-    WORLD_SIZE, else 1), this process's rank `process_id` (default RANK,
-    else 0), a timeout of `timeout_s` seconds on every collective, and the
-    backend of this rank's device: NCCL on the card, gloo with
-    `device="cpu"`. The device is resolved before the group is joined, so
-    without a card (and without `device="cpu"`) this raises at once.
+    ("host:port", rank 0 listening there; default MASTER_ADDR:MASTER_PORT
+    where both are set, as `parallel/launch.py` sets them), `num_processes`
+    ranks (default WORLD_SIZE, else 1), this process's rank `process_id`
+    (default RANK, else 0), a timeout of `timeout_s` seconds on every
+    collective, and the backend of this rank's device: NCCL on the card,
+    gloo with `device="cpu"` (or, with no device given, where
+    NDP_DIST_DEVICE is "cpu", as `launch.py --cpu` sets it). The device is
+    resolved before the group is joined, so without a card (and without
+    the CPU asked for) this raises at once.
     """
+    if device is None and os.environ.get("NDP_DIST_DEVICE") == "cpu":
+        device = "cpu"
+    if coordinator is None and "MASTER_ADDR" in os.environ and "MASTER_PORT" in os.environ:
+        coordinator = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
     if num_processes in (None, 1) and coordinator is None:
         return
     if coordinator is None:

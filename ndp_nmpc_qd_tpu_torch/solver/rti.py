@@ -212,8 +212,15 @@ def make_batched_rti_controller(
     """
     if backend not in ("auto", "pallas", "jax", "pallas_packed"):
         raise ValueError(f"unknown backend {backend!r}")
-    if qp_iters < 1:
-        raise ValueError(f"qp_iters must be >= 1, got {qp_iters}")
+    if qp_iters < 0:  # 0 is the IPM's start point, as in JAX (`tools/profile_step.py` sweeps it)
+        raise ValueError(f"qp_iters must be >= 0, got {qp_iters}")
+    if qp_iters == 0 and backend != "jax" and (
+            backend == "pallas_packed" or whole_ipm or (packed_state and whole_step)):
+        # K1's and K2's IPM report eq 0 after no iteration, so `ok` would
+        # hold whatever the start point; only the scan controller and the
+        # per-iteration path are held against JAX at 0
+        raise ValueError("qp_iters=0 runs on the scan controller (backend='jax') and the "
+                         "per-iteration path (whole_ipm=False, whole_step=False) only")
     dev = resolve_device(device)
 
     def as_input(a, dtype):

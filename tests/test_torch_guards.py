@@ -43,11 +43,15 @@ PORT_TOOLS = ("profile_torch_step.py", "time_sweep_kernels.py", "time_team_kerne
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "ndp_nmpc_qd_tpu_torch").rglob("*.py"))
-    parallel = {"distributed.py", "mesh.py", "episode.py", "batch_step.py"}
+    parallel = {"distributed.py", "mesh.py", "episode.py", "batch_step.py", "launch.py"}
     assert parallel <= {f.name for f in files if f.parent.name == "parallel"}, files
+    assert {ROOT / "ndp_nmpc_qd_tpu_torch" / name for name in ("entry.py", "deployed.py")} <= set(
+        files)
     files += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
     tools = sorted((ROOT / "tools").glob("*_torch.py"))
-    assert len(tools) >= 9, tools
+    assert {"profile_step_torch.py", "profile_trace_torch.py", "multicard_torch.py"} <= {
+        t.name for t in tools}, tools
+    assert len(tools) >= 12, tools
     files += tools + [ROOT / "tools" / name for name in PORT_TOOLS]
     assert len(files) > 20
     for path in files:
@@ -75,23 +79,31 @@ TOOL_ARGV = {
     "viz3d_torch": ["--track-secs", "0.02"],
     "nn_field_viz_torch": ["--dzs", "0.8"],
     "live_plot_torch": ["--secs", "0.01"],
+    "profile_step_torch": ["8"],
+    "profile_trace_torch": ["8", "--skip-interactive"],
+    "multicard_torch": ["--worlds", "1"],
 }
 
 
 @pytest.mark.parametrize("entry", ["thrust_controller", "thrust_episode", "tensor_lin",
                                    "init_mlp", "load_torch_checkpoint", "initialize",
-                                   "make_sharded_step", "make_sharded_episode", *TOOL_ARGV])
+                                   "make_sharded_step", "make_sharded_episode", "spawn",
+                                   "launch_main", "entry", "dryrun_multichip", "multichip_rank",
+                                   "sharded_row_rank", *TOOL_ARGV])
 def test_new_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
     """The motor-thrust controller and its episode, the tensor-op
     linearizer's controller, the MLP trainer's entry points, the parallel
     package's (joining a process group, the sharded batch step and the
-    sharded episode, each on a new default mesh, none being kept) and the
-    port's tools run on the card by default: without one, and without an
-    explicit device or `--cpu`, they raise (`initialize` before it joins
-    any group)."""
-    from ndp_nmpc_qd_tpu_torch import cli
+    sharded episode, each on a new default mesh, none being kept), the
+    launcher (`spawn`, the module entry), `entry.py`'s `entry`,
+    `dryrun_multichip` and `multichip_rank`, the deployed step's sharded
+    row on one rank (`deployed.sharded_row_rank`) and the port's tools (the profilers and the
+    multi-card tool too) run on the card by default: without one, and
+    without an explicit device or `--cpu`, they raise (`initialize` before
+    it joins any group, the launcher before it starts any process)."""
+    from ndp_nmpc_qd_tpu_torch import cli, deployed, entry as t_entry
     from ndp_nmpc_qd_tpu_torch.models import downwash_mlp
-    from ndp_nmpc_qd_tpu_torch.parallel import batch_step, distributed, episode
+    from ndp_nmpc_qd_tpu_torch.parallel import batch_step, distributed, episode, launch
     from ndp_nmpc_qd_tpu_torch.parallel.mesh import release_meshes
     from ndp_nmpc_qd_tpu_torch.sim.thrust_loop import make_thrust_episode
     from ndp_nmpc_qd_tpu_torch.solver.ocp_thrust import make_thrust_rti_controller
@@ -115,6 +127,12 @@ def test_new_entry_points_without_a_card_raise(monkeypatch, tmp_path, entry):
             lambda *a: a, None, (torch.zeros(2, 3),)),
         "make_sharded_episode": lambda: episode.make_sharded_episode(
             cfg, cli.build_eight(), None, n_drones=2, scenario_batch=1),
+        "spawn": lambda: launch.spawn(print, 2),
+        "launch_main": lambda: launch.main(["--nproc", "1", str(tmp_path / "never.py")]),
+        "entry": lambda: t_entry.entry(),
+        "dryrun_multichip": lambda: t_entry.dryrun_multichip(),
+        "multichip_rank": lambda: t_entry.multichip_rank(8, 0, 1.0),
+        "sharded_row_rank": lambda: deployed.sharded_row_rank(8, 0, 1.0),
     }.get(entry) or (lambda: load_tool(entry).main(TOOL_ARGV[entry]))
     release_meshes()
     with pytest.raises(RuntimeError, match="no CUDA device"):
