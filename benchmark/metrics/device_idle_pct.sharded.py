@@ -1,0 +1,7 @@
+"""The traced stretch less the union of its kernels, as a share of it
+(on the slowest rank where the cell has several)."""
+
+
+def read(run):
+    tr = run["trace"]
+    return tr.idle_pct() if tr is not None else None
