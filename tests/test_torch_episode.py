@@ -6,11 +6,12 @@ figure-eight, 2 hold ticks then 2 tracking ticks, traces recorded. The
 controller is the per-iteration IPM from the clipped-LQR start with the
 dual warm start and 3 QP iterations, batch-first state: K3, K6 + K7, and
 K4 + K5 per iteration. The JAX episode runs the pallas backend in interpret
-mode (its `run_fn` jitted, so it compiles once); the port runs its plain
-versions on the CPU from the same initial state (carried over with
+mode (its `run_fn` jitted), read from the recording
+`tools/record_jax_refs.py` makes of it (`jax_refs.py`); the port runs its
+plain versions on the CPU from the same initial state (carried over with
 `convert.episode_state_from_numpy`, after checking that the port's own
-`init_fn` builds it). f32 throughout, the trajectory in f64 as the JAX
-package builds it here. Tolerances: commanded controls u0 atol 1e-4,
+`init_fn` builds it, against the JAX `init_fn` run live). f32 throughout,
+the trajectory in f64 as the JAX package builds it here. Tolerances: commanded controls u0 atol 1e-4,
 throttle atol 1e-5, plant states atol 1e-5 (f32 rounding of two
 implementations of the same controller over 4 chained ticks); the
 accumulated metrics rtol 1e-4; `ok` and the re-seed count identical; the
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_refs import Recording, keys
 from ndp_nmpc_qd_tpu import cli as j_cli
 from ndp_nmpc_qd_tpu.models.downwash_mlp import load_npz as j_load
 from ndp_nmpc_qd_tpu.params import NdpNmpcConfig
@@ -53,18 +55,36 @@ KW = dict(n_drones=3, use_ndp=True, true_downwash=True, qp_iters=3, record_trace
           solver_lqr_start=True, solver_whole_ipm=False)
 
 
+RUN_OUT = ("x", "u0", "throttle", "pos_rmse", "yaw_rmse_deg", "form_rmse", "ok", "recovered",
+           "tick", "n_track", "plant_x", "est_x", "x_bar", "u_bar") + tuple(
+               f"ipm{k}" for k in range(5))
+REF_KEYS = keys(("run",), RUN_OUT, ("st0", "traj", "weights", "kw", "ticks"))
+
+
+def jax_episode():
+    """The figure-eight and the JAX package's (init_fn, step_fn, run_fn)."""
+    traj_j = j_cli.build_eight()
+    return traj_j, j_episode(NdpNmpcConfig(), traj_j, downwash_params=j_load(ASSET), **KW,
+                             solver_interpret=True)
+
+
+def run_inputs(st0, traj_j):
+    """What the JAX run is handed: its initial state, the trajectory, the
+    weights, the flags and the tick count."""
+    return dict(st0=jax.tree.leaves(st0), traj=jax.tree.leaves(jax.tree.map(np.asarray, traj_j)),
+                weights=jax.tree.leaves(jax.tree.map(np.asarray, j_load(ASSET))), kw=KW,
+                ticks=TICKS)
+
+
 @pytest.fixture(scope="module")
 def episodes():
-    traj_j = j_cli.build_eight()
-    init_j, _, run_j = j_episode(NdpNmpcConfig(), traj_j, downwash_params=j_load(ASSET), **KW,
-                                 solver_interpret=True)
+    traj_j, (init_j, _, _) = jax_episode()
     traj_t = convert.traj_from_numpy(jax.tree.map(np.asarray, traj_j), device="cpu")
     init_t, _, run_t = t_episode(PortConfig(), traj_t, downwash_params=t_load(ASSET, device="cpu"),
                                  **KW, device="cpu")
     st0 = jax.tree.map(np.asarray, init_j())
-    out_j = jax.jit(lambda s: run_j(s, TICKS))(init_j())
     out_t = run_t(convert.episode_state_from_numpy(st0, device="cpu"), TICKS)
-    return st0, init_t(), out_j, out_t
+    return st0, init_t(), run_inputs(st0, traj_j), out_t
 
 
 def arr(a):
@@ -86,8 +106,11 @@ def test_port_init_builds_the_jax_initial_state(episodes):
 
 
 def test_episode_matches_jax(episodes):
-    _, _, (st_j, m_j, tr_j), (st_t, m_t, tr_t) = episodes
-    x_j, u0_j, thr_j = (np.asarray(a) for a in tr_j)
+    _, _, inputs, (st_t, m_t, tr_t) = episodes
+    rec = Recording("test_torch_episode")
+    rec.check_inputs("run", **inputs)
+    ref = lambda name: rec("run", name)
+    x_j, u0_j, thr_j = ref("x"), ref("u0"), ref("throttle")
     x_t, u0_t, thr_t = (arr(a) for a in tr_t)
     assert u0_t.shape == u0_j.shape == (TICKS, 3, 4)
     np.testing.assert_allclose(u0_t, u0_j, atol=1e-4, err_msg="u0")
@@ -96,17 +119,17 @@ def test_episode_matches_jax(episodes):
     assert bool(np.abs(u0_t[2:, 0] - u0_t[2:, 1]).max() > 0)  # tracking started
 
     for name in ("pos_rmse", "yaw_rmse_deg", "form_rmse"):
-        np.testing.assert_allclose(arr(getattr(m_t, name)), np.asarray(getattr(m_j, name)),
+        np.testing.assert_allclose(arr(getattr(m_t, name)), ref(name),
                                    rtol=1e-4, atol=1e-7, err_msg=name)
-    np.testing.assert_array_equal(arr(m_t.ok), np.asarray(m_j.ok))
-    assert int(m_t.recovered) == int(m_j.recovered)
-    assert (st_t.tick, st_t.n_track) == (int(st_j.tick), int(st_j.n_track)) == (TICKS, 2)
+    np.testing.assert_array_equal(arr(m_t.ok), ref("ok"))
+    assert int(m_t.recovered) == int(ref("recovered"))
+    assert (st_t.tick, st_t.n_track) == (int(ref("tick")), int(ref("n_track"))) == (TICKS, 2)
 
-    np.testing.assert_allclose(arr(st_t.plant.x), np.asarray(st_j.plant.x), atol=1e-5)
-    np.testing.assert_allclose(arr(st_t.est.x), np.asarray(st_j.est.x), rtol=1e-5)
-    np.testing.assert_allclose(arr(st_t.rti.x_bar), np.asarray(st_j.rti.x_bar), atol=2e-5)
-    np.testing.assert_allclose(arr(st_t.rti.u_bar), np.asarray(st_j.rti.u_bar), atol=2e-5)
-    for k, (got, ref) in enumerate(zip(st_t.rti.ipm, st_j.rti.ipm)):
-        got, ref = arr(got), np.asarray(ref)
-        scale = float(np.abs(ref).max())
-        np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3 * scale, err_msg=f"ipm {k}")
+    np.testing.assert_allclose(arr(st_t.plant.x), ref("plant_x"), atol=1e-5)
+    np.testing.assert_allclose(arr(st_t.est.x), ref("est_x"), rtol=1e-5)
+    np.testing.assert_allclose(arr(st_t.rti.x_bar), ref("x_bar"), atol=2e-5)
+    np.testing.assert_allclose(arr(st_t.rti.u_bar), ref("u_bar"), atol=2e-5)
+    for k, got in enumerate(st_t.rti.ipm):
+        got, want = arr(got), ref(f"ipm{k}")
+        scale = float(np.abs(want).max())
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3 * scale, err_msg=f"ipm {k}")

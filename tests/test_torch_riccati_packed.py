@@ -3,7 +3,8 @@
 
 - The clipped form (zero sig, the controls clipped into the box less a 1e-3
   margin, as `ipm_packed` starts) against the JAX Pallas kernels
-  `riccati_sweep_packed` in interpret mode at B=1024 (one JAX block), at
+  `riccati_sweep_packed` in interpret mode at B=1024 (one JAX block), read
+  from the recording `tools/record_jax_refs.py` makes of them, at
   `tests/test_pallas_riccati.py`'s atol 5e-5 (both f32; the plain version
   contracts with einsum, the Pallas kernel element by element).
 - The Newton form (nonzero sig, defects rhat, no clip) against the vmapped
@@ -24,8 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from ndp_nmpc_qd_tpu.ops.pallas.riccati import BLOCK, SUB
-from ndp_nmpc_qd_tpu.ops.pallas.riccati import riccati_sweep_packed as j_sweep
+from jax_refs import Recording, keys
 from ndp_nmpc_qd_tpu.solver import qp_ipm as j_qp
 from ndp_nmpc_qd_tpu.solver.ocp import QpData as JQpData
 from ndp_nmpc_qd_tpu_torch.ops.kernels import riccati as t_ric
@@ -36,6 +36,8 @@ from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_packed import pack_qp
 
 CFG = NdpNmpcConfig()
 N = CFG.ocp.N_node
+BLOCK = 1024  # one block of the JAX kernels: 8 sublanes of 128 lanes
+REF_KEYS = keys(("clipped",), ("dx", "du"), computed=("args", "clip"))  # the port's QP
 
 
 @pytest.fixture(autouse=True)
@@ -68,30 +70,24 @@ def dense_qp(B, seed, dtype):
     return lin(T(xb), T(ub), T(xr), T(ur), T(fd)), T(x0 - xb[:, 0])
 
 
-def to_jax(t, B):
-    """A port (s, d, B) tensor as the JAX kernel layout (s, d, nb, SUB, 128)."""
-    s, d = t.shape[:2]
-    return jnp.asarray(t.numpy().reshape(s, d, B // BLOCK, SUB, BLOCK // SUB))
-
-
-def from_jax(a):
-    a = np.asarray(a)
-    return a.reshape(a.shape[0], a.shape[1], -1)
-
-
-def test_clipped_sweep_matches_jax_kernel():
-    B = BLOCK
+def clipped_args(B):
+    """The clipped sweep's arguments over the port's f32 QP at seed 0, and
+    its clip bounds."""
     qp, dx0 = dense_qp(B, 0, torch.float32)
     p = pack_qp(qp)
     margin = 1e-3 * (p.uu - p.lu)
     args = (p.hxx, torch.zeros_like(p.gx), p.huu, torch.zeros_like(p.gu), p.gx, p.gu, p.a,
             p.b, p.r, pack(dx0[:, None]))
-    lo, hi = p.lu + margin, p.uu - margin
+    return args, (p.lu + margin, p.uu - margin)
+
+
+def test_clipped_sweep_matches_jax_kernel():
+    args, (lo, hi) = clipped_args(BLOCK)
+    rec = Recording("test_torch_riccati_packed")
+    rec.check_inputs("clipped", args=args, clip=(lo, hi))
     dx_t, du_t = t_ric.riccati_sweep_packed(*args, clip_lo=lo, clip_hi=hi)
-    dx_j, du_j = j_sweep(*(to_jax(t, B) for t in args), clip_lo=to_jax(lo, B),
-                         clip_hi=to_jax(hi, B), interpret=True)
-    np.testing.assert_allclose(du_t.numpy(), from_jax(du_j), atol=5e-5)
-    np.testing.assert_allclose(dx_t.numpy(), from_jax(dx_j), atol=5e-5)
+    np.testing.assert_allclose(du_t.numpy(), rec("clipped", "du"), atol=5e-5)
+    np.testing.assert_allclose(dx_t.numpy(), rec("clipped", "dx"), atol=5e-5)
     # the clip is active somewhere, so the test holds K9's clip too
     assert bool(((du_t <= lo + 1e-6) | (du_t >= hi - 1e-6)).any())
 

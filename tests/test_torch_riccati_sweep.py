@@ -6,10 +6,11 @@ offsets in [-3, 3] m, quaternion iterates off hover by 0.2, controls at
 hover, a forecast force of scale 0.3) with its first 64 scenarios moved to
 the far regime (offsets of 20-30 m), linearized by the port's plain K3 with
 an f32 and with a bf16 curvature payload; both packages get that same
-payload. The JAX kernels run in interpret mode, the port's plain versions
-on the CPU. The JAX sweep is called exactly as its IPM's clipped-LQR start
-calls it, so the IPM tests reuse that interpret-mode compile (~40 s on a
-CPU); each IPM configuration compiles once more.
+payload. The port's plain versions run on the CPU; the JAX side is the
+recording `tools/record_jax_refs.py` makes of its kernels in interpret mode
+(`jax_refs.py`), the JAX sweep called exactly as its IPM's clipped-LQR
+start calls it. Each test first checks that its inputs are those the
+recording was made from.
 
 1. K6 + K7 as the clipped-LQR start calls them, f32: the zero iterate, zero
    sig/corr, the controls clipped to the box less a 1e-3 margin, with the
@@ -41,23 +42,16 @@ CPU); each IPM configuration compiles once more.
      dual near 200 by 1e-3, where the nominal scenarios agree within 7e-6.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from ndp_nmpc_qd_tpu.ops.pallas.riccati import LANE, SUB
-from ndp_nmpc_qd_tpu.ops.pallas.riccati_sparse import riccati_sweep_sparse as j_sweep
-from ndp_nmpc_qd_tpu.params import NdpNmpcConfig
-from ndp_nmpc_qd_tpu.solver.ocp_sparse import SparseQp as JSparseQp
-from ndp_nmpc_qd_tpu.solver.ocp_sparse import make_ocp_functions_sparse
-from ndp_nmpc_qd_tpu.solver.qp_ipm_sparse import IpmWarm as JWarm
-from ndp_nmpc_qd_tpu.solver.qp_ipm_sparse import ipm_sparse as j_ipm
+from jax_refs import Recording, keys
 from ndp_nmpc_qd_tpu_torch import testing
 from ndp_nmpc_qd_tpu_torch.ops.kernels.linearize import linearize_stage_data_plain
 from ndp_nmpc_qd_tpu_torch.ops.kernels.riccati_sparse import riccati_sweep_sparse as t_sweep
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig as PortConfig
-from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import SparseQp, ipm_consts, lin_consts
+from ndp_nmpc_qd_tpu_torch.solver.ocp_sparse import SparseQp, ipm_consts, lin_consts, sparse_consts
 from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import (
     IpmWarm, lqr_start_point, sparse_rollout_zero_u,
 )
@@ -65,7 +59,15 @@ from ndp_nmpc_qd_tpu_torch.solver.qp_ipm_sparse import ipm_sparse as t_ipm
 
 B = 1024
 N_FAR = 64
-TAIL = (B // (SUB * LANE), SUB, LANE)
+SWEEP = ("dx", "du", "rhat", "dx_hold")
+# the solution, then the carried duals (`warm_` and the IpmWarm field)
+SOLUTION = ("zx", "zu", "mu", "eq_res") + tuple(f"warm_{f}" for f in IpmWarm._fields)
+# every input is the port's (its K3's payload, its sweep arguments and
+# duals), so the recording holds fingerprints of them
+REF_KEYS = (keys(("lqr_sweep",), SWEEP, computed=("payload",))
+            + keys(("unfused_sweep_bf16",), SWEEP[:3], computed=("payload", "args"))
+            + keys(("ipm_cold",), SOLUTION, computed=("payload",))
+            + keys(("ipm_warm",), SOLUTION, computed=("payload", "warm")))
 
 
 @pytest.fixture(autouse=True)
@@ -78,21 +80,14 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def lanes(a):
-    """A JAX array with the (nb, SUB, 128) batch tail as (..., B), f32."""
-    a = np.asarray(jnp.asarray(a, jnp.float32))
-    return a.reshape(a.shape[:-3] + (-1,))[..., :B]
-
-
-def to_j(t):
-    """A (..., B) port tensor as the JAX package's (..., nb, SUB, 128), in
-    its dtype."""
-    dt = jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32
-    return jnp.asarray(t.float().numpy().reshape(t.shape[:-1] + TAIL), dt)
+@pytest.fixture(scope="module")
+def rec():
+    return Recording("test_torch_riccati_sweep")
 
 
 def payload(jac_bf16):
-    """The case's payload from the port's plain K3, in both packages."""
+    """The case's payload from the port's plain K3: the 12 tensors of
+    `linearize_stage_data`, which both packages get."""
     cfg = PortConfig()
     N = cfg.ocp.N_node
     rng = np.random.default_rng(3)
@@ -110,20 +105,18 @@ def payload(jac_bf16):
     x0 = xr[:1].clone()
     x0[0, 0:3] = torch.tensor(pos.T, dtype=torch.float32)
     lc = lin_consts(cfg.ocp, cfg.vehicle, True, jac_bf16=jac_bf16)
-    qp_t = linearize_stage_data_plain(xb, ur, xr, ur, fd, x0, **lc)
-    _, consts, _ = make_ocp_functions_sparse(NdpNmpcConfig().ocp, NdpNmpcConfig().vehicle, True)
-    qp_j = JSparseQp(*(to_j(t) for t in qp_t[:11]))
-    return (qp_j, consts, to_j(qp_t[11])), qp_t
+    return linearize_stage_data_plain(xb, ur, xr, ur, fd, x0, **lc)
+
+
+def port_case(qp_t):
+    """A payload as (its 12 tensors, (SparseQp, consts, dx0))."""
+    return qp_t, (SparseQp(*qp_t[:11]), sparse_consts(PortConfig().ocp), qp_t[11])
 
 
 @pytest.fixture(scope="module")
 def qp_case():
-    """The f32 payload: ((JAX SparseQp, consts, dx0), (port SparseQp, port
-    consts, dx0))."""
-    (qp_j, consts, dx0_j), qp_t = payload(False)
-    pc = ipm_consts(PortConfig().ocp)
-    sc = type(consts)(**{k: pc[k] for k in consts._fields})
-    return (qp_j, consts, dx0_j), (SparseQp(*qp_t[:11]), sc, qp_t[11])
+    """The f32 payload."""
+    return port_case(payload(False))
 
 
 def sweep_kw(ic):
@@ -131,51 +124,41 @@ def sweep_kw(ic):
                 rdiag_stage=ic["rdiag_stage"])
 
 
-def assert_sweep(got, ref, names):
-    assert len(got) == len(ref) == len(names)
-    for name, g, r in zip(names, got, ref):
-        g, r = g.numpy(), lanes(r)
+def assert_sweep(got, rec, case, names):
+    assert len(got) == len(names)
+    for name, g in zip(names, got):
+        g, r = g.numpy(), rec(case, name)
         assert g.shape == r.shape, name
         np.testing.assert_allclose(g, r, atol=2e-5 * max(1.0, float(np.abs(r).max())),
                                    err_msg=name)
 
 
-def test_lqr_start_sweep_matches_jax(qp_case):
+def test_lqr_start_sweep_matches_jax(qp_case, rec):
     """K6 + K7 at the clipped-LQR start, f32; the JAX sweep called as its
     IPM calls it. The defects at the zero iterate are exactly the payload's
     r, and the clip is active and respected."""
-    (qp, consts, dx0), (p_t, sc, dx0_t) = qp_case
+    qp_t, (p_t, sc, dx0_t) = qp_case
+    rec.check_inputs("lqr_sweep", payload=qp_t)
     ic = ipm_consts(PortConfig().ocp)
     args, hold = testing.sweep_args(tuple(p_t) + (dx0_t,), ic, "lqr_start")
     got = t_sweep(*args, **sweep_kw(ic), with_hold=hold)
-    N = qp.gu.shape[0]
-    z = lambda d, n: jnp.zeros((n, d) + TAIL, jnp.float32)
-    margin = 1e-3 * (qp.uu - qp.lu)
-    ref = j_sweep(
-        qp.hq, qp.gx, qp.gu, qp.a, qp.b, qp.bc, qp.r, z(10, N + 1), z(4, N), z(4, N),
-        z(3, N + 1), z(4, N), z(3, N + 1), dx0, clip_lo=qp.lu + margin, clip_hi=qp.uu - margin,
-        h=consts.h, diag6_stage=consts.diag6_stage, diag6_term=consts.diag6_term,
-        rdiag_stage=consts.rdiag_stage, interpret=True, with_hold=True,
-    )
-    assert_sweep(got, ref, ("dx", "du", "rhat", "dx_hold"))
+    assert_sweep(got, rec, "lqr_sweep", SWEEP)
     lo, hi, du = args[14].numpy(), args[15].numpy(), got[1].numpy()
     assert (du >= lo).all() and (du <= hi).all()
     assert (du == lo).any() or (du == hi).any()  # the clip is active somewhere
     np.testing.assert_array_equal(got[2].numpy(), p_t.r.numpy())
 
 
-def test_unfused_sweep_matches_jax_bf16():
+def test_unfused_sweep_matches_jax_bf16(rec):
     """K6 + K7 as the unfused glue calls them, bf16 curvature payload."""
-    (qp, _, _), qp_t = payload(True)
-    assert qp.a.dtype == jnp.bfloat16 and qp_t[3].dtype == torch.bfloat16
+    qp_t = payload(True)
+    assert qp_t[3].dtype == torch.bfloat16
     ic = ipm_consts(PortConfig().ocp)
     args, hold = testing.sweep_args(qp_t, ic, "unfused_glue")
     assert not hold and args[14] is None
-    jargs = [to_j(t) for t in args[:14]]
-    jargs[0], jargs[3], jargs[4] = qp.hq, qp.a, qp.b
+    rec.check_inputs("unfused_sweep_bf16", payload=qp_t, args=args[:14])
     got = t_sweep(*args, **sweep_kw(ic))
-    ref = j_sweep(*jargs, **sweep_kw(ic), interpret=True)
-    assert_sweep(got, ref, ("dx", "du", "rhat"))
+    assert_sweep(got, rec, "unfused_sweep_bf16", SWEEP[:3])
 
 
 def test_far_regime_scenarios_take_the_zero_control_start(qp_case):
@@ -190,45 +173,42 @@ def test_far_regime_scenarios_take_the_zero_control_start(qp_case):
                                rtol=0, atol=0)
 
 
-def solve_both(case, warm_j, warm_t, fuse_glue):
-    (qp, consts, dx0), (p_t, sc, dx0_t) = case
-    out_j = j_ipm(qp, consts, dx0, num_iters=4, interpret=True, warm=warm_j,
-                  lqr_start=True, fuse_glue=fuse_glue)
-    out_t = t_ipm(p_t, sc, dx0_t, num_iters=4, warm=warm_t, lqr_start=True, fuse_glue=fuse_glue)
-    return out_j, out_t
+def solve(case, warm, fuse_glue):
+    _, (p_t, sc, dx0_t) = case
+    return t_ipm(p_t, sc, dx0_t, num_iters=4, warm=warm, lqr_start=True, fuse_glue=fuse_glue)
 
 
-def assert_solution(out_t, out_j, msg):
+def assert_solution(out_t, rec, case):
     """The nominal scenarios at the tolerances above, the far ones at theirs."""
-    zx_j, zu_j, mu_j, eq_j, w_j = out_j
     zx_t, zu_t, mu_t, eq_t, w_t = out_t
+    ref_of = lambda name: rec(case, name)
     near, far = (..., slice(N_FAR, None)), (..., slice(0, N_FAR))
-    for name, got, ref in (("zu", zu_t.numpy(), lanes(zu_j)), ("zx", zx_t.numpy(), lanes(zx_j))):
+    for name, got in (("zu", zu_t.numpy()), ("zx", zx_t.numpy())):
+        ref = ref_of(name)
         np.testing.assert_allclose(got[near], ref[near], rtol=1e-5, atol=2e-5,
-                                   err_msg=f"{msg} {name}")
+                                   err_msg=f"{case} {name}")
         np.testing.assert_allclose(got[far], ref[far], atol=1e-4 * max(1.0, float(abs(ref).max())),
-                                   err_msg=f"{msg} {name}, far")
-    np.testing.assert_allclose(mu_t.numpy(), lanes(mu_j), rtol=1e-3, atol=1e-7, err_msg=msg)
-    np.testing.assert_allclose(eq_t.numpy(), lanes(eq_j), rtol=1e-3, atol=1e-5, err_msg=msg)
-    for name, got, ref in zip(IpmWarm._fields, w_t, w_j):
-        got, ref = got.numpy(), lanes(ref)
+                                   err_msg=f"{case} {name}, far")
+    np.testing.assert_allclose(mu_t.numpy(), ref_of("mu"), rtol=1e-3, atol=1e-7, err_msg=case)
+    np.testing.assert_allclose(eq_t.numpy(), ref_of("eq_res"), rtol=1e-3, atol=1e-5, err_msg=case)
+    for name, got in zip(IpmWarm._fields, w_t):
+        got, ref = got.numpy(), ref_of(f"warm_{name}")
         scale = float(np.abs(ref).max())
         np.testing.assert_allclose(got[near], ref[near], rtol=2e-4, atol=2e-5,
-                                   err_msg=f"{msg} {name}")
+                                   err_msg=f"{case} {name}")
         np.testing.assert_allclose(got[near], ref[near], rtol=1e-4, atol=1e-4 * scale,
-                                   err_msg=f"{msg} {name}")
+                                   err_msg=f"{case} {name}")
         np.testing.assert_allclose(got[far], ref[far], rtol=1e-3, atol=1e-3 * scale,
-                                   err_msg=f"{msg} {name}, far")
+                                   err_msg=f"{case} {name}, far")
 
 
-def test_lqr_start_ipm_matches_jax_cold(qp_case):
-    out_j, out_t = solve_both(qp_case, None, None, fuse_glue=True)
-    assert_solution(out_t, out_j, "cold")
+def test_lqr_start_ipm_matches_jax_cold(qp_case, rec):
+    rec.check_inputs("ipm_cold", payload=qp_case[0])
+    assert_solution(solve(qp_case, None, fuse_glue=True), rec, "ipm_cold")
 
 
-def test_lqr_start_unfused_ipm_matches_jax_warm(qp_case):
+def test_lqr_start_unfused_ipm_matches_jax_warm(qp_case, rec):
     """Both sides carry the same duals: the port's cold solve's."""
-    _, (p_t, sc, dx0_t) = qp_case
-    w = t_ipm(p_t, sc, dx0_t, num_iters=4, lqr_start=True, fuse_glue=False)[4]
-    out_j, out_t = solve_both(qp_case, JWarm(*(to_j(t) for t in w)), w, fuse_glue=False)
-    assert_solution(out_t, out_j, "warm")
+    w = solve(qp_case, None, fuse_glue=False)[4]
+    rec.check_inputs("ipm_warm", payload=qp_case[0], warm=w)
+    assert_solution(solve(qp_case, w, fuse_glue=False), rec, "ipm_warm")

@@ -2,11 +2,13 @@
 
 The JAX side is `make_batched_rti_controller(..., packed_state=True,
 whole_step=True)`, which reaches the `control_step_whole` Pallas kernel in
-interpret mode; the port runs its plain version on the CPU. Same numpy
+interpret mode, read from the recording `tools/record_jax_refs.py` makes of
+it (`jax_refs.py`); the port runs its plain version on the CPU. Same numpy
 inputs (the case of `test_packed_state.py`), each side fed its own package's
-f32 downwash forecast. Tolerances are the JAX package's own for this kernel
-(`test_packed_state.py:62-78`): u0 atol 1e-5; eq_res rtol 1e-4 / atol 1e-6;
-iterates atol 2e-5; duals rtol 1e-4 / atol 1e-5; `ok` identical. The
+f32 downwash forecast, which are compared live. Tolerances are the JAX
+package's own for this kernel (`test_packed_state.py:62-78`): u0 atol
+1e-5; eq_res rtol 1e-4 / atol 1e-6; iterates atol 2e-5; duals rtol 1e-4 /
+atol 1e-5; `ok` identical. The
 duals and mu are also held at rtol 1e-4 with atol 1e-4 max|ref|, since on
 warm ticks they are far below the fixed atol.
 """
@@ -18,9 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from jax_refs import Recording, keys
 from ndp_nmpc_qd_tpu.models import downwash_mlp as j_mlp
 from ndp_nmpc_qd_tpu.params import NdpNmpcConfig
-from ndp_nmpc_qd_tpu.solver import rti as j_rti
 from ndp_nmpc_qd_tpu_torch import convert
 from ndp_nmpc_qd_tpu_torch.models import downwash_mlp as t_mlp
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig as PortConfig
@@ -29,6 +31,12 @@ from ndp_nmpc_qd_tpu_torch.solver import rti as t_rti
 ASSET = os.path.join(
     os.path.dirname(__file__), "..", "assets", "downwash_analytic_sn4.npz"
 )
+TICKS = 3
+# the JAX controller's kernel-layout state as it returns it
+STATE = ("state_x_bar", "state_u_bar") + tuple(f"state_ipm{k}" for k in range(5))
+TICK_OUT = ("u0", "eq_res", "ok", "mu", "x_bar", "u_bar") + STATE
+REF_KEYS = (keys(("whole_step",), (), ("x0", "xr", "ur", "f", "qp_iters"))
+            + keys([f"whole_step/tick{t}" for t in range(TICKS)], TICK_OUT))
 
 
 @pytest.fixture(autouse=True)
@@ -55,12 +63,19 @@ def make_case(B, N, seed=3):
     return x0, xr, ur, other
 
 
-def jax_controller(cfg, qp_iters, jac_bf16):
-    return j_rti.make_batched_rti_controller(
-        cfg.ocp, cfg.vehicle, with_disturbance=True, qp_iters=qp_iters,
-        backend="pallas", interpret=True, warm_start=True, lqr_start=False,
-        whole_ipm=True, packed_state=True, whole_step=True, jac_bf16=jac_bf16,
-    )
+def jax_forecast(x0, xr, other):
+    """The JAX package's f32 downwash forecast of the case (numpy)."""
+    return np.array(j_mlp.predict_downwash(
+        j_mlp.load_npz(ASSET), jnp.asarray(other), jnp.asarray(xr),
+        r_horiz=NdpNmpcConfig().downwash.r_horiz, ego_gate_pos=jnp.asarray(x0)[:, 0:3],
+    ))
+
+
+def jax_state(ref, B):
+    """The recorded JAX state (`STATE`; ref reads a recorded array) as the
+    port's, carried over with `convert.rti_state_from_numpy`."""
+    x_bar, u_bar, *ipm = (ref(name) for name in STATE)
+    return convert.rti_state_from_numpy(x_bar, u_bar, ipm, B, device="cpu")
 
 
 def port_controller(qp_iters, jac_bf16):
@@ -79,10 +94,7 @@ def test_whole_step_controller_matches_jax():
     r_h = cfg.downwash.r_horiz
 
     params = j_mlp.load_npz(ASSET)
-    f_j = j_mlp.predict_downwash(
-        params, jnp.asarray(other), jnp.asarray(xr), r_horiz=r_h,
-        ego_gate_pos=jnp.asarray(x0)[:, 0:3],
-    )
+    f_j = jax_forecast(x0, xr, other)
     mlp = convert.mlp_from_numpy(
         [np.asarray(w) for w in params.weights],
         [np.asarray(b) for b in params.biases], device="cpu",
@@ -92,46 +104,35 @@ def test_whole_step_controller_matches_jax():
             mlp, torch.as_tensor(other), torch.as_tensor(xr), r_horiz=r_h,
             ego_gate_pos=torch.as_tensor(x0)[:, 0:3],
         )
-    assert float(np.abs(np.asarray(f_j)).max()) > 0.1  # the gate is active
-    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=1e-5, atol=1e-6)
+    assert float(np.abs(f_j).max()) > 0.1  # the gate is active
+    np.testing.assert_allclose(f_t.numpy(), f_j, rtol=1e-5, atol=1e-6)
 
-    ctl_j = jax_controller(cfg, 3, jac_bf16=False)
+    rec = Recording("test_torch_step_whole")
+    rec.check_inputs("whole_step", x0=x0, xr=xr, ur=ur, f=f_j, qp_iters=3)
     ctl_t = port_controller(3, jac_bf16=False)
-    st_j = ctl_j.reset(jnp.asarray(xr), jnp.asarray(ur))
     st_t = ctl_t.reset(torch.as_tensor(xr), torch.as_tensor(ur))
-    for tick in range(3):
-        u_j, st_j, info_j = ctl_j.update(
-            st_j, jnp.asarray(x0), jnp.asarray(xr), jnp.asarray(ur), f_j
-        )
+    for tick in range(TICKS):
+        ref = lambda name, t=tick: rec(f"whole_step/tick{t}", name)
         u_t, st_t, info_t = ctl_t.update(st_t, x0, xr, ur, f_t)
         msg = f"tick {tick}"
-        np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), atol=1e-5, err_msg=msg)
+        np.testing.assert_allclose(u_t.numpy(), ref("u0"), atol=1e-5, err_msg=msg)
         np.testing.assert_allclose(
-            info_t.eq_res.numpy(), np.asarray(info_j.eq_res), rtol=1e-4, atol=1e-6,
-            err_msg=msg,
+            info_t.eq_res.numpy(), ref("eq_res"), rtol=1e-4, atol=1e-6, err_msg=msg,
         )
-        np.testing.assert_array_equal(info_t.ok.numpy(), np.asarray(info_j.ok))
-        xb_j, ub_j = j_rti.unpack_iterates(st_j, B)
+        np.testing.assert_array_equal(info_t.ok.numpy(), ref("ok"))
         xb_t, ub_t = t_rti.unpack_iterates(st_t, B)
-        np.testing.assert_allclose(xb_t.numpy(), np.asarray(xb_j), atol=2e-5, err_msg=msg)
-        np.testing.assert_allclose(ub_t.numpy(), np.asarray(ub_j), atol=2e-5, err_msg=msg)
-        want = convert.rti_state_from_numpy(
-            np.asarray(st_j.x_bar), np.asarray(st_j.u_bar),
-            [np.asarray(a) for a in st_j.ipm], B, device="cpu",
-        )
-        for got, ref in zip(st_t.ipm, want.ipm):
-            np.testing.assert_allclose(
-                got.numpy(), ref.numpy(), rtol=1e-4, atol=1e-5, err_msg=msg
-            )
+        np.testing.assert_allclose(xb_t.numpy(), ref("x_bar"), atol=2e-5, err_msg=msg)
+        np.testing.assert_allclose(ub_t.numpy(), ref("u_bar"), atol=2e-5, err_msg=msg)
+        for got, want in zip(st_t.ipm, jax_state(ref, B).ipm):
+            want = want.numpy()
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5, err_msg=msg)
             # the warm-tick duals sit near mu (~1e-8), under that atol: hold
             # them at their own scale as well
-            scale = float(np.abs(ref.numpy()).max())
+            scale = float(np.abs(want).max())
             np.testing.assert_allclose(
-                got.numpy(), ref.numpy(), rtol=1e-4, atol=1e-4 * scale, err_msg=msg
+                got.numpy(), want, rtol=1e-4, atol=1e-4 * scale, err_msg=msg
             )
-        np.testing.assert_allclose(
-            info_t.mu.numpy(), np.asarray(info_j.mu), rtol=1e-4, atol=1e-5
-        )
+        np.testing.assert_allclose(info_t.mu.numpy(), ref("mu"), rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("bad", [

@@ -7,8 +7,10 @@ warm start, and the one-kernel step against the two-kernel path.
   ticks, at `test_packed_state.py:99-115`'s tolerances (u0 atol 1e-5,
   eq_res rtol 1e-4 / atol 1e-6, `ok` identical, iterates atol 2e-5); the
   second tick also from the JAX state, carried over with
-  `convert.rti_batch_state_from_numpy`. The JAX controller runs its
-  kernels in interpret mode, its `update` jitted.
+  `convert.rti_batch_state_from_numpy`. The JAX side is the recording
+  `tools/record_jax_refs.py` makes of the JAX controller with its kernels
+  in interpret mode (its `update` jitted; no duals without warm start),
+  checked first against this file's inputs.
 - Port only: the batch-first state against the packed one, both
   `whole_ipm`, with and without warm start, atol 1e-6 on u0, eq_res, mu,
   iterates and duals (the same plain arithmetic in another layout); and
@@ -17,46 +19,46 @@ warm start, and the one-kernel step against the two-kernel path.
   1e-4 / atol 1e-6, iterates atol 2e-5, duals and mu rtol 1e-4 / atol 1e-5).
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ndp_nmpc_qd_tpu.params import NdpNmpcConfig
+from jax_refs import Recording, keys
 from ndp_nmpc_qd_tpu_torch import convert
 from ndp_nmpc_qd_tpu_torch.params import NdpNmpcConfig as PortConfig
 from ndp_nmpc_qd_tpu_torch.solver import rti as t_rti
 from test_torch_step_whole import make_case, one_torch_thread  # noqa: F401 (autouse fixture)
-from test_torch_two_kernel import B, forecast, jax_controller, port_controller
+from test_torch_two_kernel import B, QP_ITERS, forecast, inputs, port_controller
+
+COLD_TICKS = 2
+REF_KEYS = (keys(("cold",), (), ("x0", "xr", "ur", "f", "qp_iters"))
+            + keys([f"cold/tick{t}" for t in range(COLD_TICKS)],
+                   ("u0", "eq_res", "ok", "x_bar", "u_bar")))
 
 
 def test_cold_batch_first_controller_matches_jax():
-    cfg = NdpNmpcConfig()
-    N = cfg.ocp.N_node
-    x0, xr, ur, _ = make_case(B, N)
-    f = forecast(B, N)
-    ctl_j = jax_controller(cfg, False, False, packed_state=False, warm_start=False)
+    rec = Recording("test_torch_two_kernel_layout")
+    ins = inputs()
+    rec.check_inputs("cold", **ins, qp_iters=QP_ITERS)
+    x0, xr, ur, f = (ins[k] for k in ("x0", "xr", "ur", "f"))
     ctl_t = port_controller(False, False, packed_state=False, warm_start=False)
-    update_j = jax.jit(ctl_j.update)
-    st_j = ctl_j.reset(jnp.asarray(xr), jnp.asarray(ur))
     st_t = ctl_t.reset(xr, ur)
-    args_j = tuple(jnp.asarray(a) for a in (x0, xr, ur, f))
-    for tick in range(2):
-        carried = convert.rti_batch_state_from_numpy(st_j.x_bar, st_j.u_bar, st_j.ipm,
-                                                     device="cpu")
-        u_j, st_j, info_j = update_j(st_j, *args_j)
+    for tick in range(COLD_TICKS):
+        ref = lambda name, t=tick: rec(f"cold/tick{t}", name)
         u_t, st_t, info_t = ctl_t.update(st_t, x0, xr, ur, f)
         outs = [(f"tick {tick}", u_t, st_t, info_t)]
         if tick:  # and the port's tick from the JAX state, compared alone
+            prev = lambda name, t=tick - 1: rec(f"cold/tick{t}", name)
+            carried = convert.rti_batch_state_from_numpy(prev("x_bar"), prev("u_bar"), None,
+                                                         device="cpu")
             outs.append((f"tick {tick} from the JAX state",
                          *ctl_t.update(carried, x0, xr, ur, f)))
         for msg, u_t, st_t, info_t in outs:
-            np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), atol=1e-5, err_msg=msg)
-            np.testing.assert_allclose(info_t.eq_res.numpy(), np.asarray(info_j.eq_res),
+            np.testing.assert_allclose(u_t.numpy(), ref("u0"), atol=1e-5, err_msg=msg)
+            np.testing.assert_allclose(info_t.eq_res.numpy(), ref("eq_res"),
                                        rtol=1e-4, atol=1e-6, err_msg=msg)
-            np.testing.assert_array_equal(info_t.ok.numpy(), np.asarray(info_j.ok), err_msg=msg)
-            for got, ref in ((st_t.x_bar, st_j.x_bar), (st_t.u_bar, st_j.u_bar)):
-                np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5, err_msg=msg)
+            np.testing.assert_array_equal(info_t.ok.numpy(), ref("ok"), err_msg=msg)
+            for got, name in ((st_t.x_bar, "x_bar"), (st_t.u_bar, "u_bar")):
+                np.testing.assert_allclose(got.numpy(), ref(name), atol=2e-5, err_msg=msg)
 
 
 def run_port(ctl, ticks=3):
